@@ -1,0 +1,190 @@
+"""The port's slice end to end: GRU v10 streaming inference with ResNet18.
+
+``ssde_tpu_torch``'s ``GRUStreamEvaluator`` (built through its script's
+``build_evaluator``) against ``ssde_tpu.eval.gru_runners.GRUStreamEvaluator``
+on the same weights and synthetic frames, for all three protocols, at
+64x128 in float32 (bound 1e-4 on the disparity). A subprocess with JAX
+imports blocked shows that the port needs no JAX.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from ssde_tpu.checkpoint import (convert_depth_decoder, convert_gru_blocks,
+                                 convert_resnet_encoder)
+from ssde_tpu.config import Options
+from ssde_tpu.eval.gru_runners import GRUStreamEvaluator as JaxEvaluator
+from ssde_tpu.train.steps_gru import build_gru_models as jax_build_gru_models
+from ssde_tpu_torch.data.synthetic import scene_frames
+from ssde_tpu_torch.models.common import sample_
+from ssde_tpu_torch.models.resnet import randomize_bn_stats_
+from ssde_tpu_torch.ops.conv3x3 import conv3x3
+from ssde_tpu_torch.scripts.evaluate_depth_gru_fusion import (build_evaluator,
+                                                              predict_bucketed,
+                                                              predict_scenes)
+
+H, W, B = 64, 128, 2
+TOL = 1e-4
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _opts():
+    opt = Options()
+    opt.gru_version, opt.height, opt.width = "v10", H, W
+    opt.compute_dtype = "float32"
+    return opt
+
+
+@pytest.fixture(scope="module")
+def evaluators():
+    """(port evaluator, JAX evaluator) on the same seeded weights."""
+    ev = build_evaluator(_opts(), "cpu", seed=0)
+    m = ev.models
+    g = torch.Generator().manual_seed(1)
+    randomize_bn_stats_(m.encoder, g)
+    for s in range(4):  # a non-zero learned initial state
+        sample_(m.gru.unit(s).h0_layer1, g, lambda t: t.normal_(0, 0.5, generator=g))
+    sd = lambda mod: {k: v.detach().numpy() for k, v in mod.state_dict().items()}
+    enc_p, enc_s, _ = convert_resnet_encoder(sd(m.encoder))
+    params = {"encoder": enc_p, "depth": convert_depth_decoder(sd(m.depth)),
+              "gru": convert_gru_blocks(sd(m.gru))}
+    jev = JaxEvaluator(jax_build_gru_models(_opts()), params, {"encoder": enc_s})
+    return ev, jev
+
+
+@pytest.fixture(scope="module")
+def frames():
+    return scene_frames(H, W, 4, batch=B, seed=3)
+
+
+def test_predict_single(evaluators, frames):
+    ev, jev = evaluators
+    got = ev.predict_single(frames[0])
+    assert got.shape == (B, H, W) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, jev.predict_single(frames[0]), atol=TOL, rtol=0)
+
+
+def test_predict_with_warmup(evaluators, frames):
+    ev, jev = evaluators
+    got = ev.predict_with_warmup(frames[:2], frames[2])
+    np.testing.assert_allclose(got, jev.predict_with_warmup(frames[:2], frames[2]),
+                               atol=TOL, rtol=0)
+    # the recurrence matters: warm-up changes the prediction
+    assert np.abs(got - ev.predict_single(frames[2])).max() > 1e-3
+
+
+def test_predict_scene(evaluators, frames):
+    ev, jev = evaluators
+    got, want = ev.predict_scene(frames[:3]), jev.predict_scene(frames[:3])
+    assert len(got) == len(want) == 3
+    for t, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g, w, atol=TOL, rtol=0, err_msg=f"frame {t}")
+
+
+def test_script_protocol_loops(evaluators, frames):
+    """The bucketed single/warm-up loop and the scene loop of the script:
+    items of different warm-up lengths, a padded last chunk, two scenes."""
+    ev, jev = evaluators
+    one = [f[:1] for f in frames]  # (1, H, W, 3) frames, as the KITTI reader gives
+    items = [(0, one[:2], one[2]), (1, [], one[0]), (2, one[:2], one[3]),
+             (3, one[:2], one[1]), (4, [], one[1])]
+    got = predict_bucketed(ev, items, batch_size=2, min_depth=0.1, max_depth=100.0)
+    for pos, prev, img in items:
+        d = (ev.predict_with_warmup(prev, img) if prev else ev.predict_single(img))[0]
+        np.testing.assert_allclose(got[pos], 0.01 + (10.0 - 0.01) * d, rtol=1e-6)
+    scenes = predict_scenes(ev, [one[:2], one[1:4]], 0.1, 100.0)
+    assert [len(s) for s in scenes] == [2, 3]
+    want = jev.predict_scene([f.repeat(B, 0) for f in one[1:4]])
+    np.testing.assert_allclose(scenes[1][2], 0.01 + (10.0 - 0.01) * want[2][0],
+                               atol=TOL * 10, rtol=0)  # scaled disp spans 10x
+
+
+def test_script_main_on_a_kitti_tree(tmp_path, monkeypatch):
+    """The script's entry point on a miniature KITTI tree: its frame reader
+    gives the JAX package's frames, and main() reports the eigen metrics of
+    the bucketed warm-up predictions."""
+    from PIL import Image
+
+    from ssde_tpu.data.kitti import pil_load_resized
+    from ssde_tpu.eval.depth import evaluate_depth_predictions
+    from ssde_tpu_torch.scripts import evaluate_depth_gru_fusion as script
+
+    rng = np.random.RandomState(0)
+    drive = "2011_09_26/2011_09_26_drive_0001_sync"
+    img_dir = tmp_path / "kitti" / drive / "image_02" / "data"
+    img_dir.mkdir(parents=True)
+    for i in range(4):
+        Image.fromarray((rng.rand(90, 300, 3) * 255).astype(np.uint8)).save(
+            img_dir / f"{i:010d}.jpg")
+    split = tmp_path / "splits" / "eigen"
+    split.mkdir(parents=True)
+    (split / "test_files.txt").write_text(f"{drive} 3 l\n{drive} 1 l\n")
+    gt = rng.uniform(1.0, 80.0, (2, 90, 300)).astype(np.float32)
+    np.savez(split / "gt_depths.npz", data=gt)
+    monkeypatch.setenv("SSDE_SPLITS_DIR", str(tmp_path / "splits"))
+
+    argv = ["--protocol", "warmup", "--warmup_frames", "2", "--eval_batch_size", "2",
+            "--device", "cpu", "--gru_version", "v10", "--height", str(H),
+            "--width", str(W), "--data_path", str(tmp_path / "kitti")]
+    got = script.main(argv)
+
+    opt = _opts()
+    opt.data_path = str(tmp_path / "kitti")
+    frame = lambda i: script._load_frame(opt, drive, i)
+    for i in range(4):
+        want = pil_load_resized(str(img_dir / f"{i:010d}.jpg"), W, H, False)[None]
+        assert np.array_equal(frame(i), want)
+    assert frame(4) is None
+    items = [(0, [frame(1), frame(2)], frame(3)), (1, [frame(0)], frame(1))]
+    preds = predict_bucketed(build_evaluator(_opts(), "cpu"), items, 2, opt.min_depth,
+                             opt.max_depth)
+    want = evaluate_depth_predictions(np.stack(preds), list(gt), eval_split="eigen")
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, err_msg=k)
+
+
+def test_cpu_path_never_launches_the_kernel(evaluators, frames):
+    before = conv3x3.launches
+    evaluators[0].predict_single(frames[0])
+    assert conv3x3.launches == before
+
+
+_NO_JAX = textwrap.dedent("""
+    import importlib, importlib.abc, pkgutil, sys
+
+    class BlockJax(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "flax"):
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.meta_path.insert(0, BlockJax())
+    import ssde_tpu_torch
+    for mod in pkgutil.walk_packages(ssde_tpu_torch.__path__, "ssde_tpu_torch."):
+        importlib.import_module(mod.name)
+
+    from ssde_tpu.config import Options
+    from ssde_tpu_torch.data.synthetic import scene_frames
+    from ssde_tpu_torch.scripts.evaluate_depth_gru_fusion import build_evaluator
+    opt = Options()
+    opt.gru_version, opt.height, opt.width = "v10", 64, 128
+    disp = build_evaluator(opt, "cpu").predict_scene(scene_frames(64, 128, 2))
+    assert disp[-1].shape == (1, 64, 128) and 0 < disp[-1].min() < disp[-1].max() < 1
+    assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules)
+    print("no-jax ok")
+""")
+
+
+def test_port_runs_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "SSDE_PLATFORM"}
+    res = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "no-jax ok" in res.stdout
