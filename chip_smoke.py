@@ -32,13 +32,34 @@ Phases, each fatal on failure:
              run): the losses, every gradient
   9. mono times    train step ms and samples/s at B=12 and 48, each new
              kernel against its plain version, the device idle share
+ 10. gru kernels   the conv3x3 backward (the forward kernel as dx, the
+             weight-gradient kernel #2, db) against autograd of the plain
+             version at every GRU v10 conv shape at B=8 (640x192), both pads,
+             bias on/off, float32 and bf16, and ragged and 2-pixel-high maps
+ 11. gru slice     the GRU trainer built by the port's entry point
+             (scripts/train_gru: v10, ResNet18, 640x192, B=8, T=3, bf16,
+             synthetic data): one epoch of 4 steps and its val(); finite
+             losses, changed parameters, launch counts per step; then an
+             epoch with the learned initial states frozen
+ 12. gru cpu       (a) the v10 block unrolled over T=3 at B=1, float32, card
+             (kernels) vs CPU (plain): outputs, hidden states, every
+             gradient; (b) one whole GRU step at B=1, T=2 by phase 8's recipe
+ 13. gru times     train step ms, frame-samples/s, peak memory, idle share,
+             the top device operations; per conv shape the forward, dx and
+             dW kernels beside cuDNN's forward, backward-data and
+             backward-weight
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels as JSON. Imports no JAX.
+the kernels as JSON, each with its time, its plain version's, the least
+time the card could take (``bound_ms``: the bytes the function must move
+over 3.35 TB/s or its operations over the peak rate for its type, the
+larger) and a PyTorch library call's time where one computes the same
+function. Imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import json
@@ -83,6 +104,22 @@ TOL_STEP_LOSS, TOL_STEP_GRAD = 1e-4, 1e-3
 # the device's busy time over profiled steps, divided by the same number
 # of unprofiled steps' CUDA-event time (the profiler slows the host)
 IDLE_STEPS = 3
+# GRU v10 sequence training: the JAX package's GRU benchmark configuration
+# (scripts/bench_gru.py:34-37), full width
+GRU_B, GRU_T = 8, 3
+# phase 10, the conv3x3 backward (dx, dw, db) against autograd of the plain
+# conv on the same operands and the same output gradient (chip_smoke's
+# _conv_bwd says why): float32 1e-4 of each gradient's max against a
+# float64 run (dW sums up to B*H*W = 983,040 products per weight in
+# blocked float32 partial sums; dx is the forward kernel; cuDNN's own
+# float32 backward-weight, TF32 off, was 1.5e-4 of max off at 32->96 on an
+# H100, so it is shown, not used); bf16 1e-2 against a float32 run on the
+# bf16-rounded operands: the kernels round dx to bf16 (2^-8) and dW to the
+# weights' bf16.
+TOL_BWD_F32, TOL_BWD_BF16 = 1e-4, 1e-2
+# the card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 
 
 def fail(msg: str):
@@ -123,23 +160,36 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def bound(flops: float, nbytes: float, dtype: str):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate and
+    the operations over the peak rate for ``dtype``."""
+    t_ops, t_bytes = flops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def conv_cost(cin, cout, h, w, B, elem, w_elem=None):
+    """(FLOPs, bytes) of one 3x3 conv pass (forward, dx or dW) at B
+    images of h x w: 2*9*Cin*Cout operations per pixel; each input read
+    once and the output written once: the Cin- and Cout-channel activations
+    at ``elem`` bytes a value, the weights (or dW) at ``w_elem`` (default
+    ``elem``)."""
+    w_elem = elem if w_elem is None else w_elem
+    return (2 * 9 * cin * cout * h * w * B,
+            elem * B * (cin + cout) * h * w + w_elem * 9 * cin * cout)
+
+
 def main() -> None:
     import torch
 
+    wall0 = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from ssde_tpu.config import Options
-        from ssde_tpu_torch.data.synthetic import scene_frames
-        from ssde_tpu_torch.eval.gru_runners import GRUStreamEvaluator
-        from ssde_tpu_torch.models.common import sample_
-        from ssde_tpu_torch.models.resnet import randomize_bn_stats_
+        import ssde_tpu_torch.scripts.evaluate_depth_gru_fusion  # noqa: F401
+        import ssde_tpu_torch.scripts.train_dpt  # noqa: F401
+        import ssde_tpu_torch.scripts.train_gru  # noqa: F401
         from ssde_tpu_torch.ops.build import load_library
-        from ssde_tpu_torch.ops.conv3x3 import ACTS, conv3x3, conv3x3_reference
-        from ssde_tpu_torch.scripts.evaluate_depth_gru_fusion import (
-            build_evaluator, predict_bucketed, predict_scenes)
-        from ssde_tpu_torch.train.steps_gru import GRUModels
     except ImportError as e:
         fail(f"the port is not importable next to chip_smoke.py ({e})")
 
@@ -166,6 +216,51 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("TF32 off for cuDNN convs and matmuls: every comparison is in full float32")
+
+    kernels = {"conv3x3_fwd": serving(dev, card)}
+    errs = mono_kernels(dev, card)
+    launch_counts = mono_slice(dev)
+    mono_card_vs_cpu(dev)
+    times = mono_times(dev, card)
+    for name, src, rep in (("warp_family_fwd", "ssde_tpu_torch/csrc/warp_family.cu",
+                            "ssde_tpu/ops/pallas/warp_banded.py:64"),
+                           ("photometric_fwd", "ssde_tpu_torch/csrc/photometric.cu",
+                            "ssde_tpu/ops/pallas/photometric.py:97"),
+                           ("photometric_bwd", "ssde_tpu_torch/csrc/photometric.cu",
+                            "ssde_tpu/ops/pallas/photometric.py:110")):
+        kernels[name] = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+                         "launches": launch_counts[name], "max_abs_err": errs[name],
+                         **times[name]}
+    errs = gru_kernels(dev)
+    launch_counts = gru_slice(dev)
+    gru_card_vs_cpu(dev)
+    times = gru_times(dev, card)
+    for name, rep in (("conv3x3_dx", "ssde_tpu/ops/pallas/conv3x3.py:79 (as dx at :279, :384)"),
+                      ("conv3x3_dw", "ssde_tpu/ops/pallas/conv3x3.py:109")):
+        kernels[name] = {"name": name, "route": "cuda",
+                         "source": "ssde_tpu_torch/csrc/conv3x3.cu", "replaces": rep,
+                         "launches": launch_counts[name], "max_abs_err": errs[name],
+                         **times[name]}
+    print(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s [{card}]")
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def serving(dev, card):
+    """Phases 2-5: the serving slice; returns conv3x3_fwd's kernels entry."""
+    import torch
+
+    from ssde_tpu_torch.config import Options
+    from ssde_tpu_torch.data.synthetic import scene_frames
+    from ssde_tpu_torch.eval.gru_runners import GRUStreamEvaluator
+    from ssde_tpu_torch.models.common import sample_
+    from ssde_tpu_torch.models.resnet import randomize_bn_stats_
+    from ssde_tpu_torch.ops.conv3x3 import ACTS, conv3x3, conv3x3_reference
+    from ssde_tpu_torch.scripts.evaluate_depth_gru_fusion import (
+        build_evaluator, predict_bucketed, predict_scenes)
+    from ssde_tpu_torch.train.steps_gru import GRUModels
 
     # ----------------------------------------------- 2. kernel vs plain twin
     convs = slice_convs(VERSION, H, W)
@@ -274,7 +369,8 @@ def main() -> None:
 
     # ------------------------------------------------------------ 5. times
     print(f"times on {card} (CUDA events, 20 launches after 3 warm-up, order "
-          "twin, kernel, kernel, twin; float32; inputs stay resident in L2 where they fit)")
+          "twin, kernel, kernel, twin; float32; inputs stay resident in L2 where they fit;"
+          " library: cuDNN F.conv2d with zero padding 1 and no act, the same FLOPs)")
     per_conv = {}
     with torch.inference_mode():
         for (cin, cout, h, w, pad, act, has_b), B in itertools.product(
@@ -285,17 +381,20 @@ def main() -> None:
             k = lambda: conv3x3(x, wt, bt, pad, act)
             p = lambda: conv3x3_reference(x, wt, bt, pad, act)
             tp1, tk1, tk2, tp2 = cuda_ms(p), cuda_ms(k), cuda_ms(k), cuda_ms(p)
+            tl = cuda_ms(lambda: torch.nn.functional.conv2d(x, wt, bt, padding=1))
             tk, tp = (tk1 + tk2) / 2, (tp1 + tp2) / 2
-            per_conv[(cin, cout, h, w, pad, act, has_b, B)] = (tk, tp)
+            per_conv[(cin, cout, h, w, pad, act, has_b, B)] = (tk, tp, tl)
             gflop = 2 * 9 * cin * cout * h * w * B / 1e9
             print(f"  {cin:3d}->{cout:<3d} {h}x{w} B={B} {pad:7s} {act:7s} "
                   f"bias={int(has_b)}: kernel "
                   f"{tk:.4f} ms ({gflop / tk:.2f} TFLOP/s), twin {tp:.4f} ms "
-                  f"({gflop / tp:.2f} TFLOP/s) [{card}]")
-    frame_k = sum(per_conv[c[1:] + (1,)][0] for c in convs)
-    frame_p = sum(per_conv[c[1:] + (1,)][1] for c in convs)
+                  f"({gflop / tp:.2f} TFLOP/s), library {tl:.4f} ms [{card}]")
+    frame_k, frame_p, frame_l = (sum(per_conv[c[1:] + (1,)][i] for c in convs) for i in range(3))
+    costs = [conv_cost(c[1], c[2], c[3], c[4], 1, 4) for c in convs]
+    frame_b, frame_by = bound(sum(f for f, _ in costs), sum(b for _, b in costs), "float32")
     print(f"kernel convs of one frame-step at B=1 ({per_step} convs): kernel "
-          f"{frame_k:.4f} ms, twin {frame_p:.4f} ms [{card}]")
+          f"{frame_k:.4f} ms, twin {frame_p:.4f} ms, library {frame_l:.4f} ms, bound "
+          f"{frame_b:.4f} ms ({frame_by}, float32 at 67 TFLOP/s) [{card}]")
 
     lat, carry = [], ev.initial_carry(1)
     for i in range(3 + LATENCY_FRAMES):  # 3 warm-up frames, then the samples
@@ -324,30 +423,11 @@ def main() -> None:
                    "source": "ssde_tpu_torch/csrc/conv3x3.cu",
                    "replaces": "ssde_tpu/ops/pallas/conv3x3.py:79",
                    "launches": launches, "max_abs_err": worst_abs_f32,
-                   "ms": frame_k, "plain_ms": frame_p}
+                   "ms": frame_k, "plain_ms": frame_p, "bound_ms": frame_b,
+                   "bound_by": frame_by, "library_ms": frame_l}
     del ev, cpu_models, g
     torch.cuda.empty_cache()
-
-    errs = mono_kernels(dev, card)
-    launch_counts = mono_slice(dev)
-    mono_card_vs_cpu(dev)
-    times = mono_times(dev, card)
-
-    mono = [("warp_family_fwd", "ssde_tpu_torch/csrc/warp_family.cu",
-             "ssde_tpu/ops/pallas/warp_banded.py:64"),
-            ("photometric_fwd", "ssde_tpu_torch/csrc/photometric.cu",
-             "ssde_tpu/ops/pallas/photometric.py:97"),
-            ("photometric_bwd", "ssde_tpu_torch/csrc/photometric.cu",
-             "ssde_tpu/ops/pallas/photometric.py:110")]
-    kernels = [conv_kernel] + [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launch_counts[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, src, rep in mono]
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    return conv_kernel
 
 
 # ====================================================== the mono slice
@@ -447,7 +527,7 @@ def mono_slice(dev):
     """Phase 7: one epoch of the mono trainer through the entry point."""
     import torch
 
-    from ssde_tpu.config import MonodepthOptions
+    from ssde_tpu_torch.config import MonodepthOptions
     from ssde_tpu_torch.ops.photometric import photometric_bwd, photometric_fwd
     from ssde_tpu_torch.ops.warp_banded import warp_family_fwd
     from ssde_tpu_torch.scripts.train_dpt import build_trainer
@@ -526,7 +606,7 @@ def mono_card_vs_cpu(dev, batch=None):
     import torch
 
     import ssde_tpu_torch.train.steps as steps
-    from ssde_tpu.config import Options
+    from ssde_tpu_torch.config import Options
     from ssde_tpu_torch.data.pipeline import to_device
     from ssde_tpu_torch.data.synthetic import make_synthetic_batch
 
@@ -627,7 +707,7 @@ def mono_times(dev, card):
     """Phase 9: step times, kernel times, idle share."""
     import torch
 
-    from ssde_tpu.config import Options
+    from ssde_tpu_torch.config import Options
     from ssde_tpu_torch.data.pipeline import to_device
     from ssde_tpu_torch.data.synthetic import make_synthetic_batch
     from ssde_tpu_torch.ops.photometric import (photometric_bwd, photometric_bwd_reference,
@@ -654,15 +734,35 @@ def mono_times(dev, card):
                                          lambda: photometric_reference(preds, img)),
                      "photometric_bwd": (lambda: photometric_bwd(preds, img, gout),
                                          lambda: photometric_bwd_reference(preds, img, gout))}
+            # the library yardstick of the warp: F.grid_sample over the S grids
+            # (image repeated outside the timing; no residuals); none computes
+            # the photometric error or its gradient in one call
+            img_s, grids_s = img.repeat(S_SCALES, 1, 1, 1), grids.flatten(0, 1)
+            library = {"warp_family_fwd": lambda: torch.nn.functional.grid_sample(
+                img_s, grids_s, padding_mode="border", align_corners=False)}
+            # (FLOPs, bytes): every input read once, every output written once,
+            # float32; operations counted per output value: the warp's 4-tap
+            # lerp and 2 residuals ~20, the photometric forward's five 3x3 box
+            # sums, products and SSIM ~70 a channel, its backward ~3x that
+            n_warp, n_pred, n_img = S_SCALES * B * 3 * H * W, 10 * B * 3 * H * W, B * 3 * H * W
+            cost = {"warp_family_fwd": (20 * n_warp, 4 * (n_img + S_SCALES * B * H * W * 2
+                                                         + 3 * n_warp)),
+                    "photometric_fwd": (70 * n_pred, 4 * (n_pred + n_img + 10 * B * H * W)),
+                    "photometric_bwd": (210 * n_pred,
+                                        4 * (2 * n_pred + n_img + 10 * B * H * W))}
             for name, (k, p) in pairs.items():
                 tp1, tk1, tk2, tp2 = cuda_ms(p), cuda_ms(k), cuda_ms(k), cuda_ms(p)
                 tk, tp = (tk1 + tk2) / 2, (tp1 + tp2) / 2
+                tl = cuda_ms(library[name]) if name in library else None
+                bms, by = bound(*cost[name], "float32")
                 if B == MONO_B:
-                    times[name] = (tk, tp)
+                    times[name] = {"ms": tk, "plain_ms": tp, "bound_ms": bms, "bound_by": by,
+                                   "library_ms": tl}
                 shape = f"S={S_SCALES} one source" if name.startswith("warp") else f"G={10 * B}"
                 print(f"  {name} B={B} {shape} {H}x{W}: kernel {tk:.4f} ms, plain "
-                      f"{tp:.4f} ms [{card}]")
-        del img, grids, preds, gout
+                      f"{tp:.4f} ms, library " + ("none" if tl is None else f"{tl:.4f} ms")
+                      + f", bound {bms:.4f} ms ({by}) [{card}]")
+        del img, grids, preds, gout, img_s, grids_s
 
         opts = Options(height=H, width=W, batch_size=B)  # bf16 autocast, the defaults
         models = build_mono_models(opts, dev, torch.Generator().manual_seed(SEED))
@@ -702,6 +802,627 @@ def mono_times(dev, card):
         del models, state, batch, prof
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+    return times
+
+
+# ======================================================= the GRU slice
+
+DEC_CH = (16, 32, 64, 128)  # the decoder's pre-disp channels at scales 0-3
+
+
+def _leaf(t, dtype):
+    return None if t is None else t.detach().to(dtype).requires_grad_()
+
+
+def _plain_grads(x, w, b, g, pad, act):
+    """(dx, dw, db) of autograd of conv3x3_reference, in x's dtype."""
+    from ssde_tpu_torch.ops.conv3x3 import conv3x3_reference
+
+    xr, wr, br = (_leaf(t, x.dtype) for t in (x, w, b))
+    conv3x3_reference(xr, wr, br, pad, act).backward(g.to(x.dtype))
+    return tuple(None if t is None else t.grad for t in (xr, wr, br))
+
+
+def _conv_bwd(x, w, b, g, pad, act, dtype):
+    """One conv3x3 backward on the card and its plain version: ((dx, dw, db)
+    of the kernels, (dx, dw, db) of autograd of the plain conv on the same
+    operands, in float64 for float32 ones and in float32 for bf16 ones).
+    Both take the gradient gp = g * act'(out) that the backward feeds its
+    kernels, act' from the forward kernel's output and gp rounded to the
+    operands' dtype: a float64 act' would flip relu's mask wherever float32
+    rounding crosses zero (4.7e-2 of max in dx at B=8 on an H100), and
+    sigmoid's 1 - out keeps only a few bits in bf16. act' itself is plain
+    torch, held to autograd in float64 by tests/test_torch_conv3x3_grad.py."""
+    import torch
+
+    from ssde_tpu_torch.ops.conv3x3 import act_grad, conv3x3
+
+    xi, wi, bi = (_leaf(t, dtype) for t in (x, w, b))
+    out = conv3x3(xi, wi, bi, pad, act)
+    out.backward(g.to(dtype))
+    got = tuple(None if t is None else t.grad for t in (xi, wi, bi))
+    ag = act_grad(act, out.detach().float())
+    gp = (g.to(dtype).float() * (1.0 if ag is None else ag)).to(dtype)
+    hi = torch.float64 if dtype == torch.float32 else torch.float32
+    return got, _plain_grads(*(_leaf(t, hi) for t in (xi, wi, bi)), gp, pad, "none")
+
+
+def gru_kernels(dev):
+    """Phase 10: the conv3x3 backward (the forward kernel as dx, kernel #2,
+    db) against autograd of the plain version, at every conv shape of the
+    GRU v10 frame-step at B=8 (640x192), both pads, bias on and off,
+    float32 and bf16; elu and tanh at one shape; ragged and 2-pixel-high
+    maps. The float32 cases are also held against a float64 run."""
+    import torch
+
+    from ssde_tpu_torch.ops.conv3x3 import PADS
+
+    torch.backends.cudnn.allow_tf32 = False
+    shapes = sorted({c[1:7] for c in slice_convs(VERSION, H, W)},
+                    key=lambda c: (-c[3], c[0], c[1], c[5]))
+    cases = [(GRU_B, cin, cout, h, w, p, act, has_b)
+             for cin, cout, h, w, _, act in shapes for p in PADS for has_b in (True, False)]
+    cases += [(GRU_B, 32, 64, H, W, p, act, True) for act in ("elu", "tanh") for p in PADS]
+    cases += [(2, 5, 17, 37, 45, p, "relu", True) for p in PADS]  # nothing divides
+    cases += [(2, 32, 1, 37, 45, "reflect", "sigmoid", True),  # a ragged head
+              (2, 32, 1, 2, 45, "reflect", "sigmoid", True),   # folds on rows 1 and 0
+              (2, 16, 16, 2, 45, "reflect", "none", False)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_abs = {"conv3x3_dx": 0.0, "conv3x3_dw": 0.0}
+    worst_plain = 0.0  # cuDNN's float32 backward against the float64 one
+    print(f"gru kernels: the conv3x3 backward, {len(cases)} cases x (float32, bf16) "
+          f"against autograd of the plain version; bounds of each gradient's max: "
+          f"float32 {TOL_BWD_F32}, bf16 {TOL_BWD_BF16}")
+    t0 = time.perf_counter()
+    for B, cin, cout, h, w, pad, act, has_b in cases:
+        x = torch.randn(B, cin, h, w, device=dev, generator=gen)
+        wt = torch.randn(cout, cin, 3, 3, device=dev, generator=gen) / (3 * cin ** 0.5)
+        bt = torch.randn(cout, device=dev, generator=gen) * 0.1 if has_b else None
+        g = torch.randn(B, cout, h, w, device=dev, generator=gen)
+        line = []
+        for dtype in (torch.float32, torch.bfloat16):
+            got, want = _conv_bwd(x, wt, bt, g, pad, act, dtype)
+            torch.cuda.synchronize()
+            rels = []
+            for name, a, r in zip(("dx", "dw", "db"), got, want):
+                if r is None:
+                    continue
+                if a.dtype != dtype or a.shape != r.shape:
+                    fail(f"gru kernels: {name} {a.dtype} {tuple(a.shape)}")
+                rels.append((name, _rel(a.to(r.dtype), r)))
+                if dtype == torch.float32 and name != "db":
+                    key = "conv3x3_dx" if name == "dx" else "conv3x3_dw"
+                    worst_abs[key] = max(worst_abs[key], (a.double() - r).abs().max().item())
+            if dtype == torch.float32:  # autograd of the plain version in float32, shown
+                plain = _plain_grads(x, wt, bt, g, pad, act)
+                worst_plain = max([worst_plain] + [_rel(a.double(), r) for a, r in
+                                                   zip(plain, want) if r is not None])
+            tol = TOL_BWD_F32 if dtype == torch.float32 else TOL_BWD_BF16
+            worst[dtype] = max([worst[dtype]] + [r for _, r in rels])
+            line.append(("f32 " if dtype == torch.float32 else "bf16 ")
+                        + " ".join(f"{n} {r:.2e}" for n, r in rels))
+            if max(r for _, r in rels) > tol:
+                fail(f"gru kernels: {cin}->{cout} {h}x{w} B={B} {pad} {act} bias={has_b} "
+                     f"{dtype}: {rels} above {tol}")
+        print(f"  {cin:3d}->{cout:<3d} {h}x{w} B={B} {pad:7s} {act:7s} bias={int(has_b)}: "
+              + "; ".join(line))
+        del x, wt, bt, g
+    print(f"gru kernels: {2 * len(cases)} cases ok in {time.perf_counter() - t0:.1f} s; worst "
+          f"of max: float32 {worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}; "
+          f"float32 worst abs dx {worst_abs['conv3x3_dx']:.3e}, dw "
+          f"{worst_abs['conv3x3_dw']:.3e}; autograd of the plain version in float32 "
+          f"(cuDNN, TF32 off, act' from its own output) against the float64 reference, "
+          f"worst of max: {worst_plain:.3e}")
+    torch.cuda.empty_cache()
+    return worst_abs
+
+
+def _gru_counters():
+    from ssde_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_dw, conv3x3_dx
+    from ssde_tpu_torch.ops.photometric import photometric_bwd, photometric_fwd
+    from ssde_tpu_torch.ops.warp_banded import warp_family_fwd
+
+    return {"conv3x3_fwd": conv3x3, "conv3x3_dx": conv3x3_dx, "conv3x3_dw": conv3x3_dw,
+            "warp_family_fwd": warp_family_fwd, "photometric_fwd": photometric_fwd,
+            "photometric_bwd": photometric_bwd}
+
+
+def gru_slice(dev):
+    """Phase 11: one epoch of the GRU trainer through the entry point, its
+    val(), then an epoch with the learned initial states frozen."""
+    import torch
+
+    from ssde_tpu_torch.config import MonodepthOptions
+    from ssde_tpu_torch.scripts.train_gru import build_trainer
+
+    opts = MonodepthOptions().parse(
+        ["--gru_version", VERSION, "--synthetic_data", "--batch_size", str(GRU_B),
+         "--len_sequence", str(GRU_T), "--num_epochs", "2", "--save_frequency", "3",
+         "--num_workers", "4"])
+    if (opts.height, opts.width, opts.compute_dtype, opts.num_layers) != (H, W, "bfloat16", 18):
+        fail(f"unexpected Options defaults {opts}")
+    trainer = build_trainer(opts, dev)
+    models = trainer.models
+    trained = {id(p) for p in models.parameters()}
+    h0 = {id(p) for p in models.h0_parameters()}
+
+    def tensors(keep=lambda p: True):
+        """Every trained parameter and BN statistic, by name (the dispconv
+        heads, which pre_disp never runs, are neither)."""
+        out = {}
+        for i, m in enumerate(models.modules()):
+            for k, v in m.state_dict(keep_vars=True).items():
+                is_param = isinstance(v, torch.nn.Parameter)
+                if k.endswith("num_batches_tracked") or (is_param and id(v) not in trained):
+                    continue
+                if keep(v):
+                    out[f"{i}.{k}"] = v.detach().clone()
+        return out
+
+    n_skipped = sum(1 for m in models.modules() for p in m.parameters()) - len(trained)
+    before = tensors()
+    n_val = [0]
+    val = trainer.val
+    trainer.val = lambda: (n_val.__setitem__(0, n_val[0] + 1), val())[1]
+    counters = _gru_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    history = trainer.run_epoch()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    steps, conv = len(history), 16 * GRU_T
+    per_step = {"conv3x3_fwd": conv, "conv3x3_dx": conv, "conv3x3_dw": conv,
+                "warp_family_fwd": 2, "photometric_fwd": 1, "photometric_bwd": 1}
+    per_val = {"conv3x3_fwd": conv, "conv3x3_dx": 0, "conv3x3_dw": 0,
+               "warp_family_fwd": 2, "photometric_fwd": 1, "photometric_bwd": 0}
+    want = {k: steps * per_step[k] + n_val[0] * per_val[k] for k in counters}
+    losses = [{k: float(v) for k, v in h.items()} for h in history]
+    print(f"gru slice: {steps} steps + {n_val[0]} val() at B={GRU_B}, T={GRU_T}, {H}x{W}, "
+          f"{opts.compute_dtype} autocast, in {wall:.1f} s (loader, first-step set-up and "
+          f"val included)")
+    print("gru slice: loss per step " + " ".join(f"{l['loss']:.5f}" for l in losses))
+    print(f"gru slice: launches {counts}; expected per step {per_step}, per val() "
+          f"{per_val}: {want}")
+    if steps != 4 or counts != want:
+        fail(f"gru slice: {steps} steps, launches {counts}, expected {want}")
+    if not all(np.isfinite(v) for l in losses for v in l.values()):
+        fail("gru slice: a loss is not finite")
+    after = tensors()
+    unchanged = [k for k, v in before.items() if torch.equal(v, after[k])]
+    print(f"gru slice: {len(before) - len(unchanged)} of {len(before)} parameter and "
+          f"statistics tensors changed, the {len(h0)} h0_layer1 included; {n_skipped} "
+          f"dispconv tensors are not trained (pre_disp: no gradient, no JAX entry)"
+          + (f"; unchanged: {unchanged}" if unchanged else ""))
+    if unchanged:
+        fail("gru slice: some parameters or statistics did not change")
+
+    # an epoch past h_s_epoch: the h0 freeze
+    trainer.opt.h_s_epoch, trainer.epoch = 1, 1
+    before = after
+    frozen = trainer.run_epoch()
+    torch.cuda.synchronize()
+    after = tensors()
+    names = {f"{i}.{k}" for i, m in enumerate(models.modules())
+             for k, v in m.named_parameters() if id(v) in h0}
+    moved = [k for k in before if k not in names and not torch.equal(before[k], after[k])]
+    still = [k for k in names if torch.equal(before[k], after[k])]
+    print(f"gru slice: frozen epoch of {len(frozen)} steps, loss per step "
+          + " ".join(f"{float(h['loss']):.5f}" for h in frozen)
+          + f"; h0 bit-identical {len(still)} of {len(names)}; other tensors moved "
+          f"{len(moved)} of {len(before) - len(names)}")
+    if len(still) != len(names) or len(moved) != len(before) - len(names):
+        fail("gru slice: the h0 freeze did not hold h0 exactly while the rest trained")
+    del trainer, models
+    torch.cuda.empty_cache()
+    return counts
+
+
+class _ReluPin:
+    """Every relu of the recurrent block, in call order: recorded in a float64
+    run, then replayed in the float32 runs, so that rounding cannot flip a
+    mask (relu's derivative jumps at 0). ``flips`` counts the values whose
+    own mask differs from the recorded one. :meth:`start` begins a run;
+    while :meth:`active`, ``F.relu``, ``Tensor.relu`` and the models'
+    ``conv`` with a fused relu (run as the conv without act, then the
+    pinned relu) go through it."""
+
+    def __init__(self):
+        self.masks, self.replay, self.i, self.flips = [], False, 0, 0
+
+    def start(self, replay: bool) -> "_ReluPin":
+        self.replay, self.i, self.flips = replay, 0, 0
+        return self
+
+    def relu(self, x):
+        mask = x > 0
+        if self.replay:
+            want = self.masks[self.i].to(mask.device)
+            self.i += 1
+            self.flips += int((mask != want).sum())
+            mask = want
+        else:
+            self.masks.append(mask.cpu())
+        return x * mask.to(x.dtype)
+
+    @contextlib.contextmanager
+    def active(self):
+        import torch
+
+        import ssde_tpu_torch.models.common as common
+
+        conv = common.conv
+
+        def unfused(x, layer, pad, act="none", kernel=False):
+            if act == "relu":
+                return self.relu(conv(x, layer, pad, "none", kernel))
+            return conv(x, layer, pad, act, kernel)
+
+        saved = torch.nn.functional.relu, torch.Tensor.relu, common.conv
+        torch.nn.functional.relu = lambda x, inplace=False: self.relu(x)
+        torch.Tensor.relu = lambda x: self.relu(x)
+        common.conv = unfused
+        try:
+            yield self
+        finally:
+            torch.nn.functional.relu, torch.Tensor.relu, common.conv = saved
+
+
+def _block_run(block, decs, r, q, device, dtype=None, pin=None):
+    """The v10 block unrolled over len(decs) steps on ``device`` from h0:
+    (outputs and hidden states, gradients of every parameter and input) of
+    the scalar sum(disp * r) + sum(h_T * q), as float64 on the CPU. A
+    float64 ``dtype`` runs the plain convs at every scale; ``pin`` (a
+    :class:`_ReluPin`) records the relu masks of a float64 run and replays
+    them in a float32 one."""
+    import torch
+
+    dtype = dtype or torch.float32
+    blk = copy.deepcopy(block).to(device, dtype)
+    if dtype == torch.float64:  # the kernels take float32 and bf16 only
+        blk.kernel_scales = (False,) * blk.n_scales
+    ins = [{k: torch.from_numpy(v).to(device, dtype).requires_grad_() for k, v in d.items()}
+           for d in decs]
+    hidden, outs, loss = blk.initial_state(1), {}, 0.0
+    if pin:
+        pin.start(replay=dtype != torch.float64)
+    for t, d in enumerate(ins):
+        with pin.active() if pin else contextlib.nullcontext():
+            hidden, disp = blk(d, hidden)
+        for k, v in disp.items():
+            outs[f"t{t} {k}"] = v
+            loss = loss + (v * torch.from_numpy(r[t][k]).to(device, dtype)).sum()
+    for s, h in enumerate(hidden):
+        outs[f"hidden {s}"] = h
+        loss = loss + (h * torch.from_numpy(q[s]).to(device, dtype)).sum()
+    loss.backward()
+    grads = {n: p.grad for n, p in blk.named_parameters()}
+    grads.update({f"d t{t} {k}": v.grad for t, d in enumerate(ins) for k, v in d.items()})
+    host = lambda m: {k: v.detach().cpu().double() for k, v in m.items()}  # noqa: E731
+    return host(outs), host(grads)
+
+
+def _gru_step_run(opts, batch, where, net, block_dtype, loss_dtype, select, pin=None,
+                  block_where=None):
+    """One GRU step (the train step's forward and backward, without Adam)
+    on ``where``, with the encoders, decoders and pose networks in ``net``,
+    the recurrent block in ``block_dtype`` (on ``block_where`` if given)
+    and the geometry, warp and loss in ``loss_dtype``; ``select`` replaces
+    the automask's minimum and ``pin`` the block's relus. Returns (losses,
+    gradients as float64 on the CPU, seconds)."""
+    import torch
+
+    import ssde_tpu_torch.train.steps as steps
+    import ssde_tpu_torch.train.steps_gru as steps_gru
+    from ssde_tpu_torch.data.pipeline import to_device
+    from ssde_tpu_torch.models.common import sample_
+
+    models = steps_gru.build_gru_models(opts, where, torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    for p in models.h0_parameters():  # a non-zero learned initial state
+        sample_(p, gen, lambda t: t.normal_(0.0, 0.1, generator=gen))
+    for m in (models.encoder, models.depth, models.pose_encoder, models.pose):
+        m.to(net)
+    block_where = block_where or where
+    models.gru.to(block_where, block_dtype)
+    if block_dtype == torch.float64:  # the kernels take float32 and bf16 only
+        models.gru.kernel_scales = (False,) * models.gru.n_scales
+    block_forward = models.gru.forward
+
+    def forward(dec, hidden):
+        with pin.active() if pin else contextlib.nullcontext():
+            new, disp = block_forward(
+                {k: v.to(block_where, block_dtype) for k, v in dec.items()}, hidden)
+        return new, {k: v.to(where) for k, v in disp.items()}
+
+    models.gru.forward = forward
+    if pin:
+        pin.start(replay=block_dtype != torch.float64)
+    inputs, B, T = steps_gru.preprocess_gru_batch(to_device(batch, where), opts)
+    inputs = {k: v.to(net) if k.startswith("color_aug") else
+              v.to(loss_dtype) if v.is_floating_point() else v for k, v in inputs.items()}
+    models.train()
+    patched = {"min_reprojection": select or steps.min_reprojection,
+               "_full": lambda t: t.to(loss_dtype)}
+    plain = {k: getattr(steps, k) for k in patched}
+    t0 = time.perf_counter()
+    try:
+        for k, v in patched.items():
+            setattr(steps, k, v)
+        _, losses, _ = steps_gru.gru_loss_fn(models, inputs, B, T)
+        losses["loss"].backward()
+    finally:
+        for k, v in plain.items():
+            setattr(steps, k, v)
+    groups = {"encoder": models.encoder, "depth": models.depth, "gru": models.gru,
+              "pose_encoder": models.pose_encoder, "pose": models.pose}
+    trained = {id(p) for p in models.parameters()}
+    grads = {(g, k): p.grad.detach().cpu().double() for g, m in groups.items()
+             for k, p in m.named_parameters() if id(p) in trained}
+    return ({k: float(v.detach()) for k, v in losses.items()}, grads,
+            time.perf_counter() - t0)
+
+
+def gru_card_vs_cpu(dev):
+    """Phase 12: (a) the v10 block alone over T=3 at B=1, float32, card
+    (kernels) vs CPU (plain versions) and each against float64; (b) one
+    whole GRU step at B=1, T=2, card vs CPU and each against a float64 run,
+    by phase 8's recipe. Both take the relu masks of the block from the
+    float64 run (:class:`_ReluPin`): a float32 pre-activation that rounds
+    across zero flips relu's derivative, which moved the scale-0 h0
+    gradient by 8e-3 (CPU) and 1.8e-2 (card) of its max at 640x192 in an
+    unpinned run on an H100. The step is held against float64 with its
+    loss in float64: the float32 loss's per-pixel rounding reaches the
+    per-pixel h0 gradients undamped, whatever the block's precision (the
+    run with the block in float64 and the loss in float32 shows it)."""
+    import torch
+
+    from ssde_tpu_torch.config import Options
+    from ssde_tpu_torch.data.pipeline import collate
+    from ssde_tpu_torch.data.synthetic import SyntheticSeqDataset
+    from ssde_tpu_torch.models import make_gru
+    from ssde_tpu_torch.models.common import init_weights_, sample_
+    from ssde_tpu_torch.models.recurrent import GRU_HIDDEN_SPECS
+
+    torch.backends.cudnn.allow_tf32 = False
+    counters = _gru_counters()
+    # (a) the block
+    T = 3
+    block = make_gru(VERSION, H, W)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    init_weights_(block, gen)
+    for s in range(block.n_scales):
+        sample_(block.unit(s).h0_layer1, gen, lambda t: t.normal_(0.0, 0.5, generator=gen))
+    rng = np.random.RandomState(SEED + 12)
+    shape = lambda s, c: (1, c, H >> s, W >> s)  # noqa: E731
+    decs = [{f"disp/{s}": rng.randn(*shape(s, c)).astype(np.float32)
+             for s, c in enumerate(DEC_CH)} for _ in range(T)]
+    r = [{f"disp/{s}": rng.randn(*shape(s, 1)).astype(np.float32) for s in range(4)}
+         for _ in range(T)]
+    q = [rng.randn(*shape(s, c)).astype(np.float32)
+         for s, c in enumerate(GRU_HIDDEN_SPECS[VERSION]["hid"])]
+    pin = _ReluPin()
+    out64, g64 = _block_run(block, decs, r, q, "cpu", torch.float64, pin)
+    before = {k: fn.launches for k, fn in counters.items()}
+    card_out, card_g = _block_run(block, decs, r, q, dev, pin=pin)
+    torch.cuda.synchronize()
+    launched = {k: fn.launches - before[k] for k, fn in counters.items() if k.startswith("conv")}
+    flips = {"card": pin.flips}
+    t0 = time.perf_counter()
+    cpu_out, cpu_g = _block_run(block, decs, r, q, "cpu", pin=pin)
+    cpu_s = time.perf_counter() - t0
+    flips["CPU"] = pin.flips
+    free = {"card": _block_run(block, decs, r, q, dev)[1],
+            "CPU": _block_run(block, decs, r, q, "cpu")[1]}
+    worst = max((_rel(card_out[k], cpu_out[k]), k) for k in cpu_out)
+    worst_g = max((_rel(card_g[k], cpu_g[k]), k) for k in cpu_g)
+    e64 = {name: max(_rel(v[k], g64[k]) for k in g64)
+           for name, v in (("card", card_g), ("CPU", cpu_g))}
+    print(f"gru block card vs CPU: v10 over T={T} at B=1, {H}x{W}, float32, every relu mask "
+          f"taken from a float64 CPU run (CPU {cpu_s:.1f} s); launches on the card {launched};"
+          f" worst |d| / max, card vs CPU: {len(cpu_out)} outputs and hidden states "
+          f"{worst[0]:.3e} ({worst[1]}), {len(cpu_g)} gradients {worst_g[0]:.3e} "
+          f"({worst_g[1]}); against float64: card {e64['card']:.3e}, CPU {e64['CPU']:.3e}; "
+          f"bound {TOL_CARD_VS_CPU}")
+    print(f"    relu values whose own float32 mask differs from float64's: {flips['card']} "
+          f"(card), {flips['CPU']} (CPU) of {sum(m.numel() for m in pin.masks)}; with their "
+          f"own masks (shown, not held) the gradients are off float64 by up to "
+          + ", ".join(f"{max(_rel(v[k], g64[k]) for k in g64):.3e} ({n})"
+                      for n, v in free.items()))
+    if launched != {k: 16 * T for k in launched}:
+        fail(f"gru block: launches {launched}, expected {16 * T} each")
+    if not max(worst[0], worst_g[0], *e64.values()) <= TOL_CARD_VS_CPU:
+        fail("gru block: card and CPU disagree")
+    del block
+    # (b) the whole step
+    opts = Options(height=H, width=W, batch_size=1, len_sequence=2, gru_version=VERSION,
+                   compute_dtype="float32")
+    ds = SyntheticSeqDataset(H, W, n=2, length=1, seed=SEED)
+    batch = collate([ds[0]])
+    f32, f64 = torch.float32, torch.float64
+    selected, switches = [], {}
+
+    def pinned(name):
+        switches[name] = []
+        return _selection(selected, switches=switches[name])
+
+    pin = _ReluPin()
+    l64, g64, t64 = _gru_step_run(opts, batch, "cpu", f64, f64, f64,
+                                  _selection(record=selected), pin)
+    # held set 1, the float32 loss: the kernels of the loss on the card
+    lg, gg, _ = _gru_step_run(opts, batch, dev, f64, f32, f32, pinned("card"), pin)
+    lc, gc, tc = _gru_step_run(opts, batch, "cpu", f64, f32, f32, pinned("CPU"), pin)
+    # held set 2, the float64 loss on the CPU: the card runs the block only
+    lg2, gg2, _ = _gru_step_run(opts, batch, "cpu", f64, f32, f64, pinned("card, loss f64"),
+                                pin, block_where=dev)
+    lc2, gc2, tc2 = _gru_step_run(opts, batch, "cpu", f64, f32, f64, pinned("CPU, loss f64"),
+                                  pin)
+    shown = {"card all-float32": _gru_step_run(opts, batch, dev, f32, f32, f32,
+                                               pinned("card all-float32"), pin)[1],
+             "card unpinned": _gru_step_run(opts, batch, dev, f64, f32, f32, None)[1],
+             "card, block float64": _gru_step_run(opts, batch, dev, f64, f64, f32,
+                                                  pinned("card, block float64"))[1]}
+    lrel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in ((lg, lc), (lg2, lc2)) for k in lc)
+    lrel64 = max(abs(lg2[k] - l64[k]) / abs(l64[k]) for k in l64)
+    print(f"gru step card vs CPU: one step at {H}x{W}, B=1, T=2; networks float64, the block "
+          f"float32; (1) geometry, warp and loss float32 (CPU {tc:.1f} s), (2) loss float64 "
+          f"on the CPU, the block alone on the card (CPU {tc2:.1f} s); all-float64 on the "
+          f"CPU {t64:.1f} s. Loss (1) card {lg['loss']:.8f}, CPU {lc['loss']:.8f}; (2) card "
+          f"{lg2['loss']:.8f}; float64 {l64['loss']:.8f}; worst rel card vs CPU over "
+          f"{sorted(lc)} {lrel:.3e}, (2) against float64 {lrel64:.3e} (bound {TOL_STEP_LOSS})")
+    print("  automask argmin differs from the float64 run's at "
+          + ", ".join(f"{sum(v)} ({k})" for k, v in switches.items())
+          + f" of {sum(m.numel() for m in selected)} pixel-scales; relu values off float64's "
+          f"mask in the last run {pin.flips}; the held runs take float64's argmin and relu "
+          f"masks")
+    print(f"  gradients, worst over each group's tensors of |d| / max|g| (bound "
+          f"{TOL_STEP_GRAD}): held: card vs CPU in (1) and (2), each against float64 in (2); "
+          f"shown: (1) against float64 (the float32 loss's per-pixel rounding reaches the "
+          f"per-pixel h0 gradients, about 1e-5 of the weights' in size, undamped), the "
+          f"all-float32 card run, the card run with its own argmin and relu masks, the "
+          f"card run with the block in float64 and the loss in float32)")
+    ok = lrel <= TOL_STEP_LOSS and lrel64 <= TOL_STEP_LOSS
+    for grp in ("encoder", "depth", "gru", "pose_encoder", "pose"):
+        keys = [k for k in gc if k[0] == grp]
+        held = {"(1) card vs CPU": max(_rel(gg[k], gc[k]) for k in keys),
+                "(2) card vs CPU": max(_rel(gg2[k], gc2[k]) for k in keys),
+                "(2) card vs float64": max(_rel(gg2[k], g64[k]) for k in keys),
+                "(2) CPU vs float64": max(_rel(gc2[k], g64[k]) for k in keys)}
+        info = {"(1) card vs float64": gg, "(1) CPU vs float64": gc, **{
+            f"{n} vs float64": v for n, v in shown.items()}}
+        info = {n: max(_rel(v[k], g64[k]) for k in keys) for n, v in info.items()}
+        print(f"    {grp:12s} ({len(keys)} tensors) held: "
+              + ", ".join(f"{n} {v:.3e}" for n, v in held.items())
+              + "; shown: " + ", ".join(f"{n} {v:.3e}" for n, v in info.items()))
+        ok = ok and max(held.values()) <= TOL_STEP_GRAD
+    if not ok:
+        fail("gru step: card and CPU disagree")
+
+
+def gru_times(dev, card):
+    """Phase 13: the GRU train step's time, memory and idle share at B=8,
+    T=3, bf16; then per conv shape the forward, dx and dW kernels beside
+    their plain versions and cuDNN."""
+    import torch
+    import torch.nn.functional as F
+
+    from ssde_tpu_torch.config import Options
+    from ssde_tpu_torch.data.pipeline import collate, to_device
+    from ssde_tpu_torch.data.synthetic import SyntheticSeqDataset
+    from ssde_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
+                                            conv3x3_dx, conv3x3_reference, rot_w)
+    from ssde_tpu_torch.train.state import TrainState
+    from ssde_tpu_torch.train.steps_gru import build_gru_models, train_step
+
+    torch.backends.cudnn.allow_tf32 = True  # the training configuration
+    opts = Options(height=H, width=W, batch_size=GRU_B, len_sequence=GRU_T,
+                   gru_version=VERSION)  # bf16 autocast, the default
+    models = build_gru_models(opts, dev, torch.Generator().manual_seed(SEED))
+    state = TrainState(models.parameters(), opts.learning_rate, 0, 1000)
+    ds = SyntheticSeqDataset(H, W, n=GRU_T, length=GRU_B, seed=SEED)
+    batch = to_device(collate([ds[i] for i in range(GRU_B)]), dev)
+    rng = torch.Generator(dev).manual_seed(SEED)
+    step = lambda: train_step(models, state, batch, rng)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        step()
+    n = 10
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        losses = step()
+    end.record()
+    last = float(losses["loss"])  # read back at the end of the chain
+    ms = start.elapsed_time(end) / n
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy, wall, prof = _device_idle_share(step, IDLE_STEPS)
+    frames = GRU_B * GRU_T
+    print(f"gru train step B={GRU_B} T={GRU_T} {H}x{W} bf16: {ms:.3f} ms, "
+          f"{frames * 1e3 / ms:.2f} frame-samples/s (mean of {n} after 3 warm-up; last loss "
+          f"{last:.5f}); peak memory {peak:.2f} GiB; device busy {busy:.1f} ms over "
+          f"{IDLE_STEPS} profiled steps: idle share {1 - busy / (IDLE_STEPS * ms):.1%} of "
+          f"{IDLE_STEPS} unprofiled steps ({IDLE_STEPS * ms:.1f} ms), {1 - busy / wall:.1%} "
+          f"of the profiled wall ({wall:.1f} ms) [{card}]")
+    if not np.isfinite(last):
+        fail(f"gru train step: loss {last}")
+    table = prof.key_averages().table(sort_by="device_time_total", row_limit=30)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "gru_profile_b8t3.txt"), "w") as f:
+        f.write(f"{card}\n{table}\n")
+    print(f"  top device operations over {IDLE_STEPS} profiled steps:")
+    for line in table.splitlines()[:16]:
+        print("   ", line[:160])
+    del models, state, batch, prof
+    torch.cuda.empty_cache()
+
+    # per conv shape at B=8: kernels vs plain versions vs cuDNN
+    torch.backends.cudnn.allow_tf32 = False
+    conv_bwd = torch.ops.aten.convolution_backward
+    convs = slice_convs(VERSION, H, W)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    per = {}
+    print(f"gru conv times at B={GRU_B} on {card} (CUDA events, 10 launches after 2 warm-up, "
+          "order plain, kernel, kernel, plain; library: cuDNN F.conv2d, and "
+          "aten.convolution_backward for backward-data and backward-weight, as autograd "
+          "of F.conv2d calls it; zero padding 1, no act; TF32 off)")
+    for dtype in (torch.float32, torch.bfloat16):
+        for cin, cout, h, w, pad, act, has_b in sorted(
+                {c[1:] for c in convs}, key=lambda c: (-c[3], c[0], c[1], c[5])):
+            x = torch.randn(GRU_B, cin, h, w, device=dev, generator=gen).to(dtype)
+            wt = (torch.randn(cout, cin, 3, 3, device=dev, generator=gen) / 8).to(dtype)
+            bt = torch.randn(cout, device=dev, generator=gen).to(dtype) if has_b else None
+            gp = torch.randn(GRU_B, cout, h, w, device=dev, generator=gen).to(dtype)
+            wr = rot_w(wt)
+            cases = {
+                "fwd": (lambda: conv3x3(x, wt, bt, pad, act),
+                        lambda: conv3x3_reference(x, wt, bt, pad, act),
+                        lambda: F.conv2d(x, wt, bt, padding=1)),
+                "dx": (lambda: conv3x3_dx(gp, wt), lambda: conv3x3_reference(gp, wr),
+                       lambda: conv_bwd(gp, x, wt, None, [1, 1], [1, 1], [1, 1], False,
+                                        [0, 0], 1, [True, False, False])),
+                "dw": (lambda: conv3x3_dw(x, gp, pad), lambda: conv3x3_dw_reference(x, gp, pad),
+                       lambda: conv_bwd(gp, x, wt, None, [1, 1], [1, 1], [1, 1], False,
+                                        [0, 0], 1, [False, True, False])),
+            }
+            elem = 2 if dtype == torch.bfloat16 else 4
+            tag = "bf16" if dtype == torch.bfloat16 else "f32 "
+            row = []
+            for name, (k, p, lib) in cases.items():
+                t = [cuda_ms(fn, iters=10, warmup=2) for fn in (p, k, k, p)]
+                tk, tp, tl = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, cuda_ms(lib, 10, 2)
+                flops, nbytes = conv_cost(cin, cout, h, w, GRU_B, elem,
+                                          4 if name == "dw" else None)
+                per[(dtype, name, cin, cout, h, w, pad, act, has_b)] = (
+                    tk, tp, tl, flops, nbytes)
+                row.append(f"{name} {tk:.3f} / {tp:.3f} / {tl:.3f} ms "
+                           f"({flops / tk / 1e9:.1f} TFLOP/s)")
+            print(f"  {tag} {cin:3d}->{cout:<3d} {h}x{w} {pad:7s} {act:7s}: kernel / plain / "
+                  f"library: " + "; ".join(row) + f" [{card}]")
+            del x, wt, bt, gp, wr
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        for name in ("fwd", "dx", "dw"):
+            rows = [per[(dtype, name) + c[1:]] for c in convs]
+            tk, tp, tl = (sum(r[i] for r in rows) for i in range(3))
+            t_ops = sum(r[3] for r in rows) / PEAK_OPS[dname] * 1e3
+            t_bytes = sum(r[4] for r in rows) / PEAK_BYTES * 1e3
+            b_ms = sum(max(r[3] / PEAK_OPS[dname], r[4] / PEAK_BYTES) for r in rows) * 1e3
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            b32 = sum(max(r[3] / PEAK_OPS["float32"], r[4] / PEAK_BYTES) for r in rows) * 1e3
+            print(f"gru frame-step at B={GRU_B} ({len(convs)} convs), {dname}, {name}: kernel "
+                  f"{tk:.3f} ms, plain {tp:.3f} ms, library {tl:.3f} ms; bound {b_ms:.3f} ms "
+                  f"({by}, {dname} peak) and {b32:.3f} ms at the 67 TFLOP/s float32 "
+                  f"CUDA-core peak [{card}]")
+            if dtype == torch.bfloat16 and name != "fwd":
+                times[f"conv3x3_{name}"] = {"ms": tk, "plain_ms": tp, "bound_ms": b_ms,
+                                            "bound_by": by, "library_ms": tl}
+    torch.cuda.empty_cache()
     return times
 
 

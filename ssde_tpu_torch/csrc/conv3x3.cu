@@ -150,6 +150,147 @@ conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Weight gradient (kernel #2). Replaces ssde_tpu/ops/pallas/conv3x3.py::
+// _dw_kernel (through _dw_call): dW[co, ci, ky, kx] = sum over b, y, x of
+// g[b, co, y, x] * xpad[b, ci, y + ky - 1, x + kx - 1], zero or reflect
+// padding, float32 or bf16 operands, float32 accumulation and a float32
+// result in torch's (Cout, Cin, 3, 3) layout.
+//
+// What bounds it. At the GRU v10 shapes (B=8, 640x192 and 320x96) it is a
+// product with M = Cout, N = 9 Cin and K = B H W = 983,040 pixels at scale
+// 0: about 2 x 9 x Cin x Cout FLOPs per pixel against (Cin + Cout) x 4
+// bytes read, 100-300 FLOP per byte, so compute-bound on the CUDA cores.
+//
+// Design. The TPU kernel carries the sum over its sequential grid in the
+// output block; blocks on this card run in no order, so the reduction over
+// B*H*W is split in two deterministic passes. Pass 1: a grid of (Cout
+// chunk x Cin chunk, P partitions); a block walks the 8x32 pixel tiles
+// p, p + P, ... of all B images, stages the 16-channel x halo (padding
+// resolved while loading, as in the forward) and the 16-channel g tile in
+// shared memory, and each of its 256 threads keeps the 9 tap sums of one
+// (co, ci) pair in registers, sliding a 3x3 window of x along each tile
+// row (4 shared loads per 9 FMAs). At the end it writes its partial sums
+// to a (P, Cout, Cin, 9) float32 scratch buffer. Pass 2 adds the P partial
+// sums of each weight in a fixed order. No atomics, so every run gives the
+// same bits. Tensor cores (an implicit GEMM) are the step after this one.
+// ---------------------------------------------------------------------------
+
+constexpr int kDwTileH = 8;
+constexpr int kDwTileW = 32;
+constexpr int kDwTile = kDwTileH * kDwTileW;
+constexpr int kDwCo = 16;                  // output channels per block
+constexpr int kDwCi = 16;                  // input channels per block
+constexpr int kDwThreads = kDwCo * kDwCi;  // one (co, ci) pair per thread
+constexpr int kDwHaloH = kDwTileH + 2;
+constexpr int kDwHaloW = kDwTileW + 2;
+
+template <typename T>
+__global__ void __launch_bounds__(kDwThreads)
+conv3x3_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                  float* __restrict__ partial, int B, int Cin, int H, int W,
+                  int Cout, int ci_chunks, bool reflect) {
+  __shared__ float xs[kDwCi][kDwHaloH][kDwHaloW];
+  __shared__ float gs[kDwCo][kDwTile + 1];  // +1: the 16 co rows on distinct banks
+
+  const int tid = threadIdx.x;
+  const int o = tid % kDwCo, c = tid / kDwCo;
+  const int co0 = (blockIdx.x / ci_chunks) * kDwCo;
+  const int ci0 = (blockIdx.x % ci_chunks) * kDwCi;
+  const int p = blockIdx.y, P = gridDim.y;
+  const int tiles_x = (W + kDwTileW - 1) / kDwTileW;
+  const int tiles_y = (H + kDwTileH - 1) / kDwTileH;
+  const int tiles = B * tiles_y * tiles_x;
+  const long plane = (long)H * W;
+
+  float acc[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) acc[k] = 0.f;
+
+  for (int t = p; t < tiles; t += P) {
+    const int b = t / (tiles_y * tiles_x);
+    const int y0 = ((t / tiles_x) % tiles_y) * kDwTileH;
+    const int x0 = (t % tiles_x) * kDwTileW;
+    const T* xb = x + (long)b * Cin * plane;
+    const T* gb = g + (long)b * Cout * plane;
+    __syncthreads();  // the previous tile's reads are done
+    for (int i = tid; i < kDwCi * kDwHaloH * kDwHaloW; i += kDwThreads) {
+      const int cc = i / (kDwHaloH * kDwHaloW);
+      const int r = (i / kDwHaloW) % kDwHaloH;
+      const int col = i % kDwHaloW;
+      const int gy = source(y0 - 1 + r, H, reflect);
+      const int gx = source(x0 - 1 + col, W, reflect);
+      float v = 0.f;
+      if (ci0 + cc < Cin && gy >= 0 && gx >= 0)
+        v = to_f32(xb[(ci0 + cc) * plane + (long)gy * W + gx]);
+      xs[cc][r][col] = v;
+    }
+    for (int i = tid; i < kDwCo * kDwTile; i += kDwThreads) {
+      const int oo = i / kDwTile, r = (i / kDwTileW) % kDwTileH, col = i % kDwTileW;
+      const int y = y0 + r, xx = x0 + col;
+      float v = 0.f;  // pixels past the edge and channels past Cout add 0
+      if (co0 + oo < Cout && y < H && xx < W)
+        v = to_f32(gb[(co0 + oo) * plane + (long)y * W + xx]);
+      gs[oo][r * kDwTileW + col] = v;
+    }
+    __syncthreads();
+
+#pragma unroll 1
+    for (int r = 0; r < kDwTileH; ++r) {
+      float win[3][3];  // win[ky][kx] = xpad at (row r + ky, column col + kx)
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        win[ky][1] = xs[c][r + ky][0];
+        win[ky][2] = xs[c][r + ky][1];
+      }
+#pragma unroll
+      for (int col = 0; col < kDwTileW; ++col) {
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          win[ky][0] = win[ky][1];
+          win[ky][1] = win[ky][2];
+          win[ky][2] = xs[c][r + ky][col + 2];
+        }
+        const float gv = gs[o][r * kDwTileW + col];
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx)
+            acc[ky * 3 + kx] = fmaf(gv, win[ky][kx], acc[ky * 3 + kx]);
+      }
+    }
+  }
+
+  if (co0 + o < Cout && ci0 + c < Cin) {
+    float* dst = partial + (((long)p * Cout + co0 + o) * Cin + ci0 + c) * 9;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) dst[k] = acc[k];
+  }
+}
+
+// dw[i] = sum over p of partial[p][i], p in increasing order.
+__global__ void conv3x3_dw_reduce_kernel(const float* __restrict__ partial,
+                                         float* __restrict__ dw, int n, int P) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int p = 0; p < P; ++p) s += partial[(long)p * n + i];
+  dw[i] = s;
+}
+
+template <typename T>
+void launch_dw(const void* x, const void* g, float* partial, float* dw, int B,
+               int Cin, int H, int W, int Cout, int P, bool reflect,
+               cudaStream_t stream) {
+  const int co_chunks = (Cout + kDwCo - 1) / kDwCo;
+  const int ci_chunks = (Cin + kDwCi - 1) / kDwCi;
+  conv3x3_dw_kernel<T><<<dim3(co_chunks * ci_chunks, P), kDwThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), partial, B, Cin, H, W,
+      Cout, ci_chunks, reflect);
+  const int n = Cout * Cin * 9;
+  conv3x3_dw_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(partial, dw, n, P);
+}
+
 template <typename T>
 void launch(const void* x, const void* w, const void* b, void* out, int B,
             int Cin, int H, int W, int Cout, bool reflect, int act,
@@ -187,6 +328,29 @@ extern "C" int ssde_conv3x3_fwd(const void* x, const void* w, const void* b,
     launch<float>(x, w, b, out, B, Cin, H, W, Cout, reflect != 0, act, s);
   else if (dtype == 1)
     launch<__nv_bfloat16>(x, w, b, out, B, Cin, H, W, Cout, reflect != 0, act, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// Weight gradient: x (B, Cin, H, W) and g (B, Cout, H, W) of one dtype (0
+// float32, 1 bfloat16); partial is float32 scratch of P * Cout * Cin * 9,
+// dw the float32 (Cout, Cin, 3, 3) result. 1 <= P <= 65535.
+// Returns cudaGetLastError() after both launches (0 on success).
+extern "C" int ssde_conv3x3_dw(const void* x, const void* g, void* partial,
+                               void* dw, int B, int Cin, int H, int W,
+                               int Cout, int P, int dtype, int reflect,
+                               void* stream) {
+  if (B <= 0 || Cin <= 0 || Cout <= 0 || H <= 0 || W <= 0 || P <= 0 ||
+      P > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pt = static_cast<float*>(partial);
+  float* dt = static_cast<float*>(dw);
+  if (dtype == 0)
+    launch_dw<float>(x, g, pt, dt, B, Cin, H, W, Cout, P, reflect != 0, s);
+  else if (dtype == 1)
+    launch_dw<__nv_bfloat16>(x, g, pt, dt, B, Cin, H, W, Cout, P, reflect != 0, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

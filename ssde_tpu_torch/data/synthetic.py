@@ -84,7 +84,11 @@ class SyntheticSeqDataset:
         self.length = length
         self.is_train = is_train
         self.seed = seed
+        self._epoch = 0
         self._tex = _texture(height, width + 96, seed)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
 
     def __len__(self):
         return self.length

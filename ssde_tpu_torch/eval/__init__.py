@@ -1,1 +1,1 @@
-"""Evaluation runners of the port."""
+"""Evaluation of the port: the GRU runners and the depth protocol."""

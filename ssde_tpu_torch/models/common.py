@@ -43,10 +43,23 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
             init_conv_(m, generator)
 
 
+def kernel_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype of a kernel conv's operands: autocast's where it is on for
+    ``x``'s device (the compute dtype), else ``x``'s. Autocast does not reach
+    the kernels, so their callers cast explicitly, as the JAX modules cast
+    inputs and weights to their ``dtype`` (recurrent.py:168-170)."""
+    dev = x.device.type
+    return torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
+
+
 def conv(x, layer: nn.Conv2d, pad: str, act: str = "none", kernel: bool = False):
-    """3x3 SAME conv of ``x`` with ``layer``'s weights, plain or kernel."""
-    fn = conv3x3 if kernel else conv3x3_reference
-    return fn(x, layer.weight, layer.bias, pad, act)
+    """3x3 SAME conv of ``x`` with ``layer``'s weights, plain or kernel (in
+    :func:`kernel_dtype`)."""
+    if not kernel:
+        return conv3x3_reference(x, layer.weight, layer.bias, pad, act)
+    dt = kernel_dtype(x)
+    b = None if layer.bias is None else layer.bias.to(dt)
+    return conv3x3(x.to(dt), layer.weight.to(dt), b, pad, act)
 
 
 class Conv3x3(nn.Module):

@@ -53,6 +53,10 @@ class DepthDecoder(nn.Module):
     def _m(self, name: str) -> nn.Module:
         return self.decoder[self._index[name]]
 
+    def dispconv_parameters(self):
+        """The parameters of the sigmoid ``dispconv`` heads."""
+        return [p for s in self.scales for p in self._m(f"dispconv_{s}").parameters()]
+
     def forward(self, input_features: Sequence[torch.Tensor],
                 pre_disp: bool = False) -> Dict[str, torch.Tensor]:
         outputs = {}

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.conv3x3 import conv3x3, conv3x3_reference
+from .common import kernel_dtype
 from .fusion import GRUFusionBlock_v2
 
 # per-version input/hidden channels per scale, of the versions ported so far
@@ -72,6 +73,9 @@ class ConvGRUCell(nn.Module):
         hid = self.hidden_dim
         fn = conv3x3 if kernel else conv3x3_reference
         kx, bx, kgh, kch = self.split_weights()
+        if kernel:  # the kernel's operands in the compute dtype
+            dt = kernel_dtype(x)
+            x, h, kx, bx, kgh, kch = (t.to(dt) for t in (x, h, kx, bx, kgh, kch))
         xs = fn(x, kx, bx, "zero", "none")
         gates = xs[:, :2 * hid] + fn(h, kgh, None, "zero", "none")
         reset = torch.sigmoid(gates[:, :hid])

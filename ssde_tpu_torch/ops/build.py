@@ -37,6 +37,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # x, w, b, out, B, Cin, H, W, Cout, dtype, reflect, act
     "ssde_conv3x3_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
+    # x, g, partial, dw, B, Cin, H, W, Cout, P, dtype, reflect
+    "ssde_conv3x3_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
     # img, grids, out, rdx, rdy, S, B, C, H, W, Ho, Wo
     "ssde_warp_family_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
     # pred, targ, out, G, B, C, H, W

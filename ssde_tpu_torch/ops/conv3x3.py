@@ -1,20 +1,25 @@
-"""Fused 3x3 SAME conv + bias + activation: the hand-written CUDA kernel and
-its plain PyTorch twin.
+"""Fused 3x3 SAME conv + bias + activation, forward and backward: the
+hand-written CUDA kernels and their plain PyTorch versions.
 
-Counterpart of ``ssde_tpu/ops/pallas/conv3x3.py`` (forward only: the Pallas
+Counterpart of ``ssde_tpu/ops/pallas/conv3x3.py``: the Pallas
 ``_fwd_kernel`` behind ``conv3x3``, ``conv3x3_zero`` and
-``conv3x3_zero_chain``). Layout is NCHW at true width; the TPU kernel's
-planar layout, 128-lane padding and logical width ``wl`` are lane-layout
-workarounds with no counterpart here.
+``conv3x3_zero_chain``, and the custom VJPs ``_c3z_bwd`` and ``_c3_bwd``,
+which run that same kernel as dx and ``_dw_kernel`` as dW. Layout is NCHW
+at true width; the TPU kernel's planar layout, 128-lane padding and logical
+width ``wl`` are lane-layout workarounds with no counterpart here.
 
 :func:`conv3x3` launches ``ssde_tpu_torch/csrc/conv3x3.cu`` for CUDA tensors
-and raises on anything that kernel does not take. Only tensors that lie on
-the CPU go to :func:`conv3x3_reference`.
+and raises on anything that kernel does not take; when an input requires
+grad it goes through an autograd Function whose backward launches the same
+forward kernel as dx (:func:`conv3x3_dx`) and the weight-gradient kernel
+(:func:`conv3x3_dw`). Only tensors that lie on the CPU go to
+:func:`conv3x3_reference`, under ordinary autograd: its autograd is the
+plain version of both backward kernels.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +30,8 @@ from .image import reflect_pad_2d
 PADS = ("zero", "reflect")
 ACTS = ("none", "relu", "elu", "sigmoid", "tanh")  # codes 0..4 in the kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# weight-gradient blocks per SM to aim for when splitting the pixel sum
+_DW_BLOCKS_PER_SM = 4
 
 
 def activation(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -75,9 +82,187 @@ def _check_args(x, w, b, pad, act):
         raise ValueError("conv3x3: x, w and b must be contiguous")
     if min(B, Cin, H, W) < 1 or (pad == "reflect" and min(H, W) < 2):
         raise ValueError(f"conv3x3: unsupported shape {tuple(x.shape)} for {pad} pad")
-    cout_blocks = -(-w.shape[0] // 16) if w.shape[0] >= 16 else w.shape[0]
-    if B * cout_blocks > 65535:
-        raise ValueError("conv3x3: batch x output-channel blocks exceed the grid")
+    for cout in (w.shape[0], Cin):  # the forward, and the backward's dx
+        cout_blocks = -(-cout // 16) if cout >= 16 else cout
+        if B * cout_blocks > 65535:
+            raise ValueError("conv3x3: batch x output-channel blocks exceed the grid")
+
+
+def _launch_fwd(x, w, b, pad, act):
+    B, Cin, H, W = x.shape
+    Cout = w.shape[0]
+    out = torch.empty((B, Cout, H, W), dtype=x.dtype, device=x.device)
+    launch("ssde_conv3x3_fwd", x.device, x.data_ptr(), w.data_ptr(),
+           None if b is None else b.data_ptr(), out.data_ptr(), B, Cin, H, W,
+           Cout, _DTYPES[x.dtype], int(pad == "reflect"), ACTS.index(act))
+    return out
+
+
+def _cuda_only(x, name):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+
+
+def rot_w(w: torch.Tensor) -> torch.Tensor:
+    """Weights of the data-gradient conv (``_rot_w``, conv3x3.py:201-203):
+    rotated 180 degrees, in and out swapped -> (Cin, Cout, 3, 3)."""
+    return w.flip(2, 3).transpose(0, 1).contiguous()
+
+
+def conv3x3_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx of the zero-pad conv for the output gradient ``g`` (B, Cout, H, W)
+    and its weights ``w`` (Cout, Cin, 3, 3): the zero-pad conv of ``g`` with
+    :func:`rot_w` weights, in ``g``'s dtype. On CUDA it is the forward
+    kernel; on the CPU its plain version."""
+    wr = rot_w(w)
+    _check_args(g, wr, None, "zero", "none")
+    if g.device.type == "cpu":
+        return conv3x3_reference(g, wr)
+    _cuda_only(g, "conv3x3_dx")
+    out = _launch_fwd(g, wr, None, "zero", "none")
+    conv3x3_dx.launches += 1
+    return out
+
+
+def conv3x3_dw_reference(x: torch.Tensor, g: torch.Tensor, pad: str = "zero") -> torch.Tensor:
+    """Plain weight gradient: autograd of :func:`conv3x3_reference` with
+    respect to its weights, in float32 (float64 stays float64)."""
+    dt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    with torch.enable_grad():
+        w = torch.zeros(g.shape[1], x.shape[1], 3, 3, dtype=dt, device=x.device,
+                        requires_grad=True)
+        out = conv3x3_reference(x.to(dt), w, None, pad)
+        return torch.autograd.grad(out, w, g.to(dt))[0]
+
+
+def dw_partitions(B: int, H: int, W: int, Cin: int, Cout: int, sms: int) -> int:
+    """P, the number of pixel partitions of the weight-gradient kernel: enough
+    blocks for ``_DW_BLOCKS_PER_SM`` per SM, at most one per 8x32 tile."""
+    tiles = B * -(-H // 8) * -(-W // 32)
+    chunks = -(-Cout // 16) * -(-Cin // 16)
+    return max(1, min(tiles, -(-_DW_BLOCKS_PER_SM * sms // chunks), 65535))
+
+
+def conv3x3_dw(x: torch.Tensor, g: torch.Tensor, pad: str = "zero") -> torch.Tensor:
+    """Weight gradient (Cout, Cin, 3, 3) float32 of the 3x3 SAME conv of
+    ``x`` (B, Cin, H, W) under ``pad``, for the output gradient ``g``
+    (B, Cout, H, W) of x's dtype. On CUDA kernel #2 (with its reduction
+    pass), on the CPU its plain version."""
+    if pad not in PADS:
+        raise ValueError(f"unknown pad {pad!r}; expected one of {PADS}")
+    if x.dim() != 4 or g.dim() != 4 or g.shape[0] != x.shape[0] or g.shape[2:] != x.shape[2:]:
+        raise ValueError(f"conv3x3_dw: x {tuple(x.shape)} and g {tuple(g.shape)} disagree")
+    if g.device != x.device or g.dtype != x.dtype:
+        raise TypeError("conv3x3_dw: x and g must share device and dtype")
+    if x.device.type == "cpu":
+        return conv3x3_dw_reference(x, g, pad)
+    _cuda_only(x, "conv3x3_dw")
+    if x.dtype not in _DTYPES or not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("conv3x3_dw: x and g must be contiguous float32 or bfloat16")
+    B, Cin, H, W = x.shape
+    Cout = g.shape[1]
+    if pad == "reflect" and min(H, W) < 2:
+        raise ValueError(f"conv3x3_dw: unsupported shape {tuple(x.shape)} for reflect pad")
+    P = dw_partitions(B, H, W, Cin, Cout,
+                      torch.cuda.get_device_properties(x.device).multi_processor_count)
+    partial = torch.empty((P, Cout, Cin, 3, 3), dtype=torch.float32, device=x.device)
+    dw = torch.empty((Cout, Cin, 3, 3), dtype=torch.float32, device=x.device)
+    launch("ssde_conv3x3_dw", x.device, x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+           dw.data_ptr(), B, Cin, H, W, Cout, P, _DTYPES[x.dtype], int(pad == "reflect"))
+    conv3x3_dw.launches += 1
+    return dw
+
+
+def act_grad(act: str, out: torch.Tensor) -> Optional[torch.Tensor]:
+    """act' from the float32 OUTPUT (``_act_grad``, conv3x3.py:334-348);
+    None for "none" (multiply by 1)."""
+    if act == "none":
+        return None
+    if act == "relu":
+        return (out > 0).to(out.dtype)
+    if act == "elu":
+        return torch.where(out > 0, torch.ones_like(out), out + 1.0)
+    if act == "sigmoid":
+        return out * (1.0 - out)
+    if act == "tanh":
+        return 1.0 - out * out
+    raise ValueError(f"unknown act {act!r}; expected one of {ACTS}")
+
+
+def _strip(g_line: torch.Tensor, w_line: torch.Tensor) -> torch.Tensor:
+    """1-D zero-padded adjoint along a border: s[:, ci, j] = sum over co, k
+    of g_line[:, co, j - k + 1] * w_line[co, ci, k]. g_line (B, Cout, L),
+    w_line (Cout, Cin, 3) -> (B, Cin, L)."""
+    L = g_line.shape[2]
+    s = 0.0
+    for k in range(3):
+        c = F.pad(torch.einsum("bol,oi->bil", g_line, w_line[:, :, k]), (1, 1))
+        s = s + c[:, :, 2 - k:2 - k + L]
+    return s
+
+
+def reflect_folds_(dx: torch.Tensor, gp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Add, in place, what the reflect pad's border reads send back into x
+    (``_c3_bwd``, conv3x3.py:356-437). With T the full correlation of ``gp``
+    with the rotated weights on the (H+2)x(W+2) padded grid, padded row -1
+    reads row 1 and row H reads H-2, so T's border rows and columns (strips
+    of 1-D correlations) fold onto rows 1 and H-2 and columns 1 and W-2,
+    and its four corners onto (1, 1), (1, W-2), (H-2, 1) and (H-2, W-2).
+    ``dx`` (B, Cin, H, W), ``gp`` (B, Cout, H, W) and ``w`` (Cout, Cin, 3, 3)
+    share one float dtype."""
+    H, W = dx.shape[2:]
+    dx[:, :, 1, :] += _strip(gp[:, :, 0, :], w[:, :, 0, :])
+    dx[:, :, H - 2, :] += _strip(gp[:, :, H - 1, :], w[:, :, 2, :])
+    dx[:, :, :, 1] += _strip(gp[:, :, :, 0], w[:, :, :, 0])
+    dx[:, :, :, W - 2] += _strip(gp[:, :, :, W - 1], w[:, :, :, 2])
+    for (gy, ky, ty), (gx, kx, tx) in ((r, c) for r in ((0, 0, 1), (H - 1, 2, H - 2))
+                                       for c in ((0, 0, 1), (W - 1, 2, W - 2))):
+        dx[:, :, ty, tx] += torch.einsum("bo,oi->bi", gp[:, :, gy, gx], w[:, :, ky, kx])
+    return dx
+
+
+def conv3x3_backward(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
+                     g: torch.Tensor, pad: str, act: str,
+                     dx_fn: Callable = conv3x3_dx, dw_fn: Callable = conv3x3_dw,
+                     needs=(True, True, True)):
+    """(dx, dw, db) of ``conv3x3(x, w, b, pad, act)`` whose output was
+    ``out``, for the output gradient ``g``; each is None where ``needs``
+    says so. The host-side assembly of ``_c3z_bwd`` / ``_c3_bwd``
+    (conv3x3.py:264-284, :356-437): gp = g * act'(out) in x's dtype,
+    db = sum of gp in float32, dw = ``dw_fn(x, gp, pad)``, dx =
+    ``dx_fn(gp, w)`` (the zero-pad adjoint) plus, for the reflect pad, the
+    border folds in float32. ``dx_fn`` and ``dw_fn`` are the kernels'
+    wrappers; a test passes their plain versions."""
+    hi = torch.float64 if x.dtype == torch.float64 else torch.float32
+    ag = act_grad(act, out.to(hi))
+    gp = (g.to(hi) * ag if ag is not None else g.to(hi)).to(x.dtype).contiguous()
+    db = gp.to(hi).sum((0, 2, 3)).to(w.dtype) if needs[2] else None
+    dw = dw_fn(x, gp, pad).to(w.dtype) if needs[1] else None
+    dx = None
+    if needs[0]:
+        dx = dx_fn(gp, w)
+        if pad == "reflect":
+            dx = reflect_folds_(dx.to(hi), gp.to(hi), w.to(hi)).to(x.dtype)
+    return dx, dw, db
+
+
+class _Conv3x3Fn(torch.autograd.Function):
+    """The CUDA path with a gradient: the forward kernel, then a backward
+    of the forward kernel as dx and kernel #2 as dW."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, pad, act):
+        out = _launch_fwd(x, w, b, pad, act)
+        ctx.save_for_backward(x, w, out)
+        ctx.pad, ctx.act = pad, act
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, out = ctx.saved_tensors
+        dx, dw, db = conv3x3_backward(x, w, out, g.contiguous(), ctx.pad, ctx.act,
+                                      needs=ctx.needs_input_grad[:3])
+        return dx, dw, db, None, None
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -87,25 +272,24 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     x (B, Cin, H, W); w (Cout, Cin, 3, 3); b (Cout,) or None. ``pad`` is
     "zero" or "reflect" (column 0 reads column 1, column W-1 reads W-2; the
     same for rows). ``act`` is one of :data:`ACTS`. float32 or bfloat16,
-    accumulated in f32, returned in the input dtype. Inference only.
+    accumulated in f32, returned in the input dtype. Gradients reach x, w
+    and b.
     """
     _check_args(x, w, b, pad, act)
     if x.device.type == "cpu":
         return conv3x3_reference(x, w, b, pad, act)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3: no kernel for device {x.device}")
+    _cuda_only(x, "conv3x3")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, b)):
-        raise RuntimeError("conv3x3: the CUDA kernel has no backward yet; "
-                           "call it under torch.inference_mode()")
-    B, Cin, H, W = x.shape
-    Cout = w.shape[0]
-    out = torch.empty((B, Cout, H, W), dtype=x.dtype, device=x.device)
-    launch("ssde_conv3x3_fwd", x.device, x.data_ptr(), w.data_ptr(),
-           None if b is None else b.data_ptr(), out.data_ptr(), B, Cin, H, W,
-           Cout, _DTYPES[x.dtype], int(pad == "reflect"), ACTS.index(act))
+        out = _Conv3x3Fn.apply(x, w, b, pad, act)
+    else:
+        out = _launch_fwd(x, w, b, pad, act)
     conv3x3.launches += 1
     return out
 
 
-conv3x3.launches = 0  # kernel launches; the CPU twin does not count
+# kernel launches; the CPU path does not count. dw counts one per call of
+# its two passes.
+conv3x3.launches = 0
+conv3x3_dx.launches = 0
+conv3x3_dw.launches = 0

@@ -26,10 +26,9 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ssde_tpu.config import MonodepthOptions, Options
-from ssde_tpu.eval.depth import evaluate_depth_predictions
-
 from ..checkpoint import load_reference_folder
+from ..config import MonodepthOptions, Options
+from ..eval.depth import evaluate_depth_predictions
 from ..eval.gru_runners import GRUStreamEvaluator
 from ..ops.geometry import disp_to_depth
 from ..train.steps_gru import build_gru_models

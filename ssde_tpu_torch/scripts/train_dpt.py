@@ -14,8 +14,7 @@ must end before its first save (``--save_frequency`` > ``--num_epochs``).
 
 from __future__ import annotations
 
-from ssde_tpu.config import MonodepthOptions, Options
-
+from ..config import MonodepthOptions, Options
 from ..train.trainer import Trainer
 
 _LATER = {

@@ -10,7 +10,7 @@ keeps the rate constant.
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, List
 
 import torch
 
@@ -26,7 +26,8 @@ def lr_at(step: int, learning_rate: float, scheduler_step_size: int,
 
 class TrainState:
     """Parameters' optimizer and the global step. :meth:`apply_gradients`
-    sets the scheduled rate, takes one Adam step and counts it."""
+    sets the scheduled rate, takes one Adam step and counts it; parameters
+    passed to :meth:`freeze` stop training from then on."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], learning_rate: float = 1e-4,
                  scheduler_step_size: int = 15, steps_per_epoch: int = 1):
@@ -36,13 +37,26 @@ class TrainState:
         self.step = 0
         self.optimizer = torch.optim.Adam(list(params), lr=learning_rate,
                                           betas=(0.9, 0.999), eps=1e-8)
+        self.frozen: List[torch.nn.Parameter] = []
 
     @property
     def lr(self) -> float:
         return lr_at(self.step, self.learning_rate, self.scheduler_step_size,
                      self.steps_per_epoch)
 
+    def freeze(self, params: Iterable[torch.nn.Parameter]) -> None:
+        """Stop ``params`` exactly; the others and their Adam moments train
+        on unchanged (the GRU trainer's h0 freeze, ``ssde_tpu/train/state.py``
+        :145-183). Their gradients are dropped before each step, so torch's
+        Adam skips them. optax instead zeroes their gradients and updates
+        and so keeps decaying their moments; nothing reads those moments
+        again, and every other parameter sees the same moments and
+        (per-parameter) step count either way."""
+        self.frozen.extend(params)
+
     def apply_gradients(self) -> None:
+        for p in self.frozen:
+            p.grad = None
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr
         self.optimizer.step()

@@ -24,8 +24,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from ssde_tpu.config import Options
-
+from ..config import Options
 from ..data.transforms import preprocess_batch
 from ..models import DepthDecoder, PoseDecoder, ResnetEncoder
 from ..models.common import init_weights_
@@ -90,7 +89,7 @@ class MonoModels:
         return self
 
 
-def build_mono_models(opts: Options, device="cpu",
+def build_mono_models(opts: Options, device="cuda",
                       generator: Optional[torch.Generator] = None) -> MonoModels:
     """ResNet depth encoder + DepthDecoder, and a separate ResNet pose
     encoder on stacked pairs (6 input channels) + PoseDecoder, float32

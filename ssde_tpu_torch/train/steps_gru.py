@@ -1,58 +1,189 @@
-"""Model construction for the recurrent (GRU) family (counterpart of the
-inference part of ``ssde_tpu/train/steps_gru.py``, :47-115).
+"""The recurrent (GRU) sequence step (counterpart of
+``ssde_tpu/train/steps_gru.py``): model construction, the B-major
+flattening of a (B, T) sequence batch, the unroll of the block over T, the
+sequence loss and one train step.
 
-The pose networks, the losses and the sequence train step belong to
-training and are not ported yet.
+The whole sequence goes through the networks as B*T frames: one encoder
+and decoder pass (BatchNorm pools its statistics over all of them, as in
+the JAX step), one pose pass over both pairs of every frame, then the
+block unrolled over T by a Python loop (JAX's ``lax.scan``), and the mono
+step's warp and loss (``train/steps.py``) on the flattened batch. Frames
+are flattened B-major everywhere (the reference mixes B-major and T-major
+and is consistent only at batch size 1; ``steps_gru.py:9-17``).
+
+Precision as in the JAX package: the networks run under autocast in
+``compute_dtype``; the kernel convs of the block cast their operands to it
+(``models/common.kernel_dtype``) and the hidden state is carried in it,
+while the ``h0_layer1`` parameters, the geometry, the warp and the loss
+stay float32. Only GRU v10 is ported. No activation is rematerialised:
+B*T = 24 at the benchmark shape, and the JAX ``_remat_mode`` policies are
+TPU memory workarounds.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, List, Optional
 
 import torch
 
-from ssde_tpu.config import Options
-
-from ..models import ConvGRUBlocks, DepthDecoder, ResnetEncoder, make_gru
+from ..config import Options
+from ..data.transforms import preprocess_batch
+from ..models import ConvGRUBlocks, DepthDecoder, PoseDecoder, ResnetEncoder, make_gru
 from ..models.common import init_weights_
+from . import steps
+from .state import TrainState
 
-HEAD_VERSIONS = {"v4": (16, 32, 64, 128), "v6": (16, 32, 64, 128),
-                 "v7": (32, 64, 128, 256)}
 PRE_DISP_VERSIONS = {"v3", "v4", "v6", "v7", "v8", "v9", "v10"}
+
+
+def check_version(opts: Options) -> None:
+    """Raise ``NotImplementedError`` for every GRU version but v10, naming
+    the slice of the port that brings it."""
+    v = opts.gru_version
+    if v != "v10":
+        later = ("slice 4 (GRU v9, attention fusion)" if v == "v9"
+                 else "slice 5 (GRU v1-v8 and the v4/v6/v7 heads)")
+        raise NotImplementedError(
+            f"GRU {v}: the port runs GRU v10 only; {v} comes with {later}")
+
+
+def check_supported(opts: Options) -> None:
+    """Raise for what the GRU trainer does not port: the version, then the
+    mono step's options."""
+    check_version(opts)
+    steps.check_supported(opts)
 
 
 @dataclasses.dataclass
 class GRUModels:
+    """Module bundle of the GRU family, with the ``MonoModels`` interface
+    (``modules``, ``parameters``, ``train``, ``source_ids``) so that the
+    mono step's ``predict_poses``, ``generate_images_pred`` and
+    ``compute_losses`` take it as they are."""
+
     encoder: ResnetEncoder
     depth: DepthDecoder
     gru: ConvGRUBlocks
     head: Optional[torch.nn.Module]
     opts: Options
+    pose_encoder: Optional[ResnetEncoder] = None
+    pose: Optional[PoseDecoder] = None
+
+    source_ids = (-1, 1)
+
+    @property
+    def pre_disp(self) -> bool:
+        return self.opts.gru_version in PRE_DISP_VERSIONS and bool(self.opts.gru_pre_disp)
+
+    def modules(self):
+        return tuple(m for m in (self.encoder, self.depth, self.gru, self.pose_encoder,
+                                 self.pose) if m is not None)
+
+    def parameters(self) -> List[torch.nn.Parameter]:
+        """The parameters the step trains. Under ``pre_disp`` the decoder's
+        ``dispconv_*`` heads never run (the block makes the disparity), get
+        no gradient and are left out, as the JAX tree has no such entries
+        (``checkpoint.depth_from_flax``)."""
+        skip = {id(p) for p in self.depth.dispconv_parameters()} if self.pre_disp else set()
+        return [p for m in self.modules() for p in m.parameters() if id(p) not in skip]
+
+    def h0_parameters(self) -> List[torch.nn.Parameter]:
+        """The learned initial hidden states, which the h0 freeze stops."""
+        return [self.gru.unit(s).h0_layer1 for s in range(self.gru.n_scales)]
+
+    def train(self, mode: bool = True) -> "GRUModels":
+        for m in self.modules():
+            m.train(mode)
+        return self
 
 
-def build_gru_models(opts: Options, device="cpu",
+def build_gru_models(opts: Options, device="cuda",
                      generator: Optional[torch.Generator] = None) -> GRUModels:
-    """Encoder, decoder and recurrent block for ``opts``, in eval mode.
+    """Depth encoder and decoder, the recurrent block, and the pose encoder
+    on pairs + PoseDecoder; float32 parameters, in eval mode.
 
-    With a ``generator`` the weights are initialised from it (torchvision's
-    scheme for the encoder, torch's default for the rest; h0 stays zero as
-    in the JAX package); the modules are built on the CPU and then moved to
-    ``device``. Without one, load weights afterwards
-    (:mod:`ssde_tpu_torch.checkpoint`).
+    With a ``generator`` the weights are initialised from it on the CPU
+    (torchvision's scheme for the encoders, torch's default for the rest;
+    h0 stays zero as in the JAX package) before the move to ``device``.
+    Without one, load weights afterwards (:mod:`ssde_tpu_torch.checkpoint`).
     """
-    if opts.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {opts.compute_dtype!r}: the port runs float32 only")
-    if opts.gru_version in HEAD_VERSIONS:
-        raise NotImplementedError(f"GRU {opts.gru_version} heads are not ported yet")
+    check_version(opts)
     encoder = ResnetEncoder(opts.num_layers)
     depth = DepthDecoder(encoder.num_ch_enc, scales=tuple(opts.scales))
     gru = make_gru(opts.gru_version, opts.height, opts.width,
                    attention=not opts.disable_attention)
+    pose_encoder = ResnetEncoder(opts.num_layers, num_input_images=2)
+    pose = PoseDecoder(pose_encoder.num_ch_enc, num_input_features=1,
+                       num_frames_to_predict_for=2)
     if generator is not None:
         encoder.init_weights_(generator)
         init_weights_(depth, generator)
         init_weights_(gru, generator)
-    mods = [m.to(device).eval() for m in (encoder, depth, gru)]
-    return GRUModels(*mods, None, opts)
+        pose_encoder.init_weights_(generator)
+        init_weights_(pose, generator)
+    encoder, depth, gru, pose_encoder, pose = (
+        m.to(device).eval() for m in (encoder, depth, gru, pose_encoder, pose))
+    return GRUModels(encoder, depth, gru, None, opts, pose_encoder, pose)
+
+
+def preprocess_gru_batch(batch: Dict[str, torch.Tensor], opts: Options,
+                         is_train: bool = True):
+    """(B, T, H, W, 3) sequence batch on the device -> (the flattened B*T
+    mono-style inputs, B, T); frame 0's pyramid and the scale-0 augmented
+    frames only (``steps_gru.py:118-132``)."""
+    B, T = batch["color/0"].shape[:2]
+    flat = {f"color/{i}": batch[f"color/{i}"].flatten(0, 1) for i in (0, -1, 1)}
+    for k in ("K", "jitter"):
+        if k in batch:
+            flat[k] = batch[k].repeat_interleave(T, dim=0)
+    inputs = preprocess_batch(flat, opts.height, opts.width, opts.num_scales, [0, -1, 1],
+                              is_train=is_train, pyramid_frames=[0], aug_num_scales=1)
+    return inputs, B, T
+
+
+def gru_unroll(models: GRUModels, dec: Dict[str, torch.Tensor], B: int, T: int):
+    """The v10 block over T (``steps_gru.py:143-184``): per-scale decoder
+    outputs (B*T, C, h, w), B-major -> ``disp/{s}`` (B*T, 1, h, w),
+    B-major. The hidden state starts from h0, in the compute dtype."""
+    hidden = models.gru.initial_state(B)
+    if models.opts.compute_dtype == "bfloat16":
+        # carry the hidden state in bf16; the h0 parameters stay float32
+        hidden = [h.to(torch.bfloat16) for h in hidden]
+    per_t = {k: v.unflatten(0, (B, T)) for k, v in dec.items()}
+    disps = []
+    for t in range(T):
+        hidden, disp = models.gru({k: v[:, t] for k, v in per_t.items()}, hidden)
+        disps.append(disp)
+    return {k: torch.stack([d[k] for d in disps], 1).flatten(0, 1) for k in disps[0]}
+
+
+def gru_loss_fn(models: GRUModels, inputs, B: int, T: int,
+                generator: Optional[torch.Generator] = None):
+    """encoder and decoder over B*T frames -> the unrolled block -> poses
+    -> warp -> loss (``steps_gru.py:215-259``); returns (loss, losses,
+    outputs). The modules' train/eval mode decides BatchNorm."""
+    opts = models.opts
+    device = inputs["color_aug/0/0"].device
+    with steps._autocast(opts, device):
+        dec = models.depth(models.encoder(inputs["color_aug/0/0"]), pre_disp=models.pre_disp)
+        outputs = gru_unroll(models, dec, B, T)
+        outputs.update(steps.predict_poses(models, inputs))
+    with torch.autocast(device.type, enabled=False):
+        outputs = steps.generate_images_pred(inputs, outputs, opts, models.source_ids)
+        losses = steps.compute_losses(inputs, outputs, opts, models.source_ids, generator)
+    return losses["loss"], losses, outputs
+
+
+def train_step(models: GRUModels, state: TrainState, batch,
+               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """One optimizer step on a device sequence batch: preprocess, forward in
+    train mode, backward, Adam. Returns the losses (detached, on the
+    device)."""
+    inputs, B, T = preprocess_gru_batch(batch, models.opts, is_train=True)
+    models.train()
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, losses, _ = gru_loss_fn(models, inputs, B, T, generator)
+    loss.backward()
+    state.apply_gradients()
+    return {k: v.detach() for k, v in losses.items()}

@@ -23,8 +23,7 @@ from typing import Dict, List
 
 import torch
 
-from ssde_tpu.config import Options
-
+from ..config import Options
 from ..data.pipeline import Loader, to_device
 from ..data.synthetic import SyntheticKittiDataset
 from ..data.transforms import preprocess_batch
@@ -37,16 +36,34 @@ def _hm(seconds: float) -> str:
     return f"{m // 60:02d}h{m % 60:02d}m"
 
 
+def train_device(opt: Options, device=None) -> torch.device:
+    """The trainers' device: ``device`` if given, else the CPU under
+    ``--no_cuda`` and the card otherwise. A card that is asked for and
+    absent is an error: nothing falls back to the CPU."""
+    if device is None:
+        device = "cpu" if opt.no_cuda else "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card is available: the trainer runs on the card; "
+                           "pass --no_cuda (or device='cpu') to train on the CPU")
+    return device
+
+
 class TrainerBase:
+    """Data, models, optimizer and the epoch loop; the step itself is
+    :attr:`step_fn`, :func:`ssde_tpu_torch.train.steps.train_step` here.
+    Runs on the card unless ``device`` or ``--no_cuda`` asks for the CPU."""
+
+    step_fn = staticmethod(train_step)
+    check_supported = staticmethod(check_supported)
+
     def __init__(self, options: Options, device=None, seed: int = 0):
         self.opt = options
         assert self.opt.height % 32 == 0, "'height' must be a multiple of 32"
         assert self.opt.width % 32 == 0, "'width' must be a multiple of 32"
         assert self.opt.frame_ids[0] == 0, "frame_ids must start with 0"
-        check_supported(self.opt)
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() and not self.opt.no_cuda else "cpu"
-        self.device = torch.device(device)
+        self.check_supported(self.opt)
+        self.device = train_device(self.opt, device)
         self.step = 0
         self.epoch = 0
         self.seed = seed
@@ -106,7 +123,7 @@ class TrainerBase:
         history = []
         for batch_idx, host in enumerate(self.train_loader):
             before = time.time()
-            losses = train_step(self.models, self.state, to_device(host, self.device), gen)
+            losses = self.step_fn(self.models, self.state, to_device(host, self.device), gen)
             history.append(losses)
             early_phase = batch_idx % self.opt.log_frequency == 0 and self.step < 2000
             if early_phase or self.step % 2000 == 0:

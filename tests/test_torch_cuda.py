@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their plain twins, on the card:
-conv3x3 (#1), the family warp (#7) and the photometric error forward and
-backward (#5, #6).
+conv3x3 (#1) forward and as dx, its weight gradient (#2), the family warp
+(#7) and the photometric error forward and backward (#5, #6).
 
 These tests need a CUDA card (sm_90a) and nvcc, and skip elsewhere. They
 import no JAX and run on the card with
@@ -21,7 +21,8 @@ import itertools
 import pytest
 import torch
 
-from ssde_tpu_torch.ops.conv3x3 import ACTS, conv3x3, conv3x3_reference
+from ssde_tpu_torch.ops.conv3x3 import (ACTS, act_grad, conv3x3, conv3x3_dw, conv3x3_dx,
+                                        conv3x3_reference)
 from ssde_tpu_torch.ops.photometric import (photometric_bwd, photometric_bwd_reference,
                                             photometric_fwd, photometric_reference)
 from ssde_tpu_torch.ops.warp import warp_family_reference
@@ -89,8 +90,10 @@ def test_launches_on_the_current_stream(dev):
 def test_cuda_inputs_raise_instead_of_falling_back(dev):
     x, wt, b = _inputs(dev, 1, 8, 16, 8, 8)
     before = conv3x3.launches
-    with pytest.raises(RuntimeError, match="no backward"):
-        conv3x3(x, wt.requires_grad_(), b)
+    # an input that requires grad goes through the kernels, it does not raise
+    conv3x3(x, wt.requires_grad_(), b).sum().backward()
+    assert conv3x3.launches == before + 1 and wt.grad is not None
+    before += 1
     with pytest.raises(ValueError, match="contiguous"):
         conv3x3(x.transpose(2, 3), wt.detach(), b)
     with pytest.raises(ValueError, match="one device"):
@@ -98,6 +101,57 @@ def test_cuda_inputs_raise_instead_of_falling_back(dev):
     with pytest.raises(TypeError):
         conv3x3(x.half(), wt.detach().half(), b.half())
     assert conv3x3.launches == before
+
+
+# --------------------------------------------- the backward: dx (#1) and dW (#2)
+# Bounds as in chip_smoke.py phase 10: float32 1e-4 of each gradient's max
+# (dW sums B*H*W products in blocked partial sums) against autograd of the
+# plain forward. bfloat16 1e-2 against autograd of the plain conv in
+# float32 on the same bf16-rounded operands: x, w, b and the gradient gp =
+# g * act'(out) that the kernels receive, which the backward rounds to
+# bf16 with act' taken from the bf16 output (near 1, sigmoid's 1 - out
+# keeps only a few bits; the JAX backward rounds the same way).
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad,act", [("zero", "none"), ("zero", "relu"), ("reflect", "sigmoid"),
+                                     ("reflect", "elu"), ("zero", "tanh")])
+@pytest.mark.parametrize("B,cin,cout,h,w", [
+    (1, 3, 1, 2, 2),        # reflect minimum; dx of a 1-channel output
+    (2, 5, 17, 7, 37),      # nothing divides the tiles or the channel blocks
+    (2, 32, 1, 16, 40),     # the sigmoid head: dx from 1 channel to 32
+    (1, 64, 128, 9, 64),
+])
+def test_backward_kernels_match_autograd(dev, B, cin, cout, h, w, pad, act, dtype):
+    x, wt, b = _inputs(dev, B, cin, cout, h, w, seed=3)
+    g = torch.randn(B, cout, h, w, device=dev)
+    xi, wi, bi = (t.to(dtype).requires_grad_() for t in (x, wt, b))
+    before = (conv3x3.launches, conv3x3_dx.launches, conv3x3_dw.launches)
+    conv3x3(xi, wi, bi, pad, act).backward(g.to(dtype))
+    torch.cuda.synchronize()
+    assert (conv3x3.launches, conv3x3_dx.launches, conv3x3_dw.launches) == tuple(
+        n + 1 for n in before)
+    xr, wr, br = (t.detach().float().requires_grad_() for t in (xi, wi, bi))
+    if dtype == torch.float32:
+        conv3x3_reference(xr, wr, br, pad, act).backward(g)
+    else:
+        with torch.no_grad():
+            out = conv3x3(xi.detach(), wi.detach(), bi.detach(), pad, act).float()
+            ag = act_grad(act, out)
+            gp = (g.to(dtype).float() * (1.0 if ag is None else ag)).to(dtype).float()
+        conv3x3_reference(xr, wr, br, pad).backward(gp)
+    for got, want in ((xi.grad, xr.grad), (wi.grad, wr.grad), (bi.grad, br.grad)):
+        assert got.dtype == dtype and got.shape == want.shape
+        rel = ((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-12)).item()
+        assert rel <= TOL[dtype], (act, rel)
+
+
+def test_weight_gradient_is_deterministic(dev):
+    x, _, _ = _inputs(dev, 8, 32, 96, 96, 320, seed=4)
+    g = torch.randn(8, 96, 96, 320, device=dev)
+    first = conv3x3_dw(x, g, "zero")
+    assert torch.equal(first, conv3x3_dw(x, g, "zero"))
+    assert first.dtype == torch.float32 and first.shape == (96, 32, 3, 3)
 
 
 # ------------------------------------------------ family warp and photometric

@@ -84,6 +84,18 @@ def _leaves(tree):
             for p, v in jax.tree_util.tree_leaves_with_path(tree)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The small-size runs here take one torch thread. Beside the other
+    workers of a parallel pytest run, a thread pool in every process
+    oversubscribes the cores, and their many small ops then wait minutes in
+    its barriers instead of seconds."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def step():
     """One step on both sides: (port models after the forward/backward,

@@ -26,6 +26,18 @@ from ssde_tpu_torch.ops.photometric import (photometric_bwd, photometric_bwd_ref
 G, B, C, H, W = 4, 2, 3, 16, 128
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The small-size runs here take one torch thread. Beside the other
+    workers of a parallel pytest run, a thread pool in every process
+    oversubscribes the cores, and their many small ops then wait minutes in
+    its barriers instead of seconds."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def data():
     rng = np.random.RandomState(0)

@@ -3,9 +3,9 @@
 ``ssde_tpu_torch``'s ``GRUStreamEvaluator`` (built through its script's
 ``build_evaluator``) against ``ssde_tpu.eval.gru_runners.GRUStreamEvaluator``
 on the same weights and synthetic frames, for all three protocols, at
-64x128 in float32 (bound 1e-4 on the disparity). A subprocess with JAX
-imports blocked shows that the port, the mono training slice included,
-needs no JAX.
+64x128 in float32 (bound 1e-4 on the disparity). A subprocess with the
+imports of JAX, flax and the JAX package (``ssde_tpu``) blocked shows that
+the port, its mono and GRU training slices included, needs none of them.
 """
 
 import os
@@ -33,6 +33,18 @@ from ssde_tpu_torch.scripts.evaluate_depth_gru_fusion import (build_evaluator,
 H, W, B = 64, 128, 2
 TOL = 1e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The small-size runs here take one torch thread. Beside the other
+    workers of a parallel pytest run, a thread pool in every process
+    oversubscribes the cores, and their many small ops then wait minutes in
+    its barriers instead of seconds."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _opts():
@@ -160,9 +172,11 @@ def test_cpu_path_never_launches_the_kernel(evaluators, frames):
 _NO_JAX = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
+    BLOCKED = ("jax", "jaxlib", "flax", "ssde_tpu")  # not ssde_tpu_torch
+
     class BlockJax(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "flax"):
+            if name.split(".")[0] in BLOCKED:
                 raise ImportError("blocked: " + name)
             return None
 
@@ -171,7 +185,7 @@ _NO_JAX = textwrap.dedent("""
     for mod in pkgutil.walk_packages(ssde_tpu_torch.__path__, "ssde_tpu_torch."):
         importlib.import_module(mod.name)
 
-    from ssde_tpu.config import Options
+    from ssde_tpu_torch.config import Options
     from ssde_tpu_torch.data.synthetic import scene_frames
     from ssde_tpu_torch.scripts.evaluate_depth_gru_fusion import build_evaluator
     opt = Options()
@@ -188,13 +202,26 @@ _NO_JAX = textwrap.dedent("""
     trainer = build_trainer(opt, "cpu")
     batch = to_device(next(iter(trainer.train_loader)), "cpu")
     assert float(train_step(trainer.models, trainer.state, batch)["loss"]) > 0
-    assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules)
+
+    # the GRU training slice: its entry point's trainer and one sequence step
+    import ssde_tpu_torch.train.steps_gru as steps_gru
+    import ssde_tpu_torch.train.trainer_gru  # noqa: F401
+    from ssde_tpu_torch.scripts import train_gru
+    opt = train_gru.MonodepthOptions().parse(
+        ["--gru_version", "v10", "--synthetic_data", "--height", "64", "--width", "128",
+         "--batch_size", "1", "--len_sequence", "2", "--compute_dtype", "float32",
+         "--num_workers", "1", "--no_cuda"])
+    trainer = train_gru.build_trainer(opt)
+    batch = to_device(next(iter(trainer.train_loader)), "cpu")
+    assert float(steps_gru.train_step(trainer.models, trainer.state, batch)["loss"]) > 0
+    assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("no-jax ok")
 """)
 
 
 def test_port_runs_without_jax():
     env = {k: v for k, v in os.environ.items() if k != "SSDE_PLATFORM"}
+    env["OMP_NUM_THREADS"] = "1"  # one torch thread, as in _one_torch_thread
     res = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
