@@ -48,9 +48,26 @@ Phases, each fatal on failure:
              the top device operations; per conv shape the forward, dx and
              dW kernels beside cuDNN's forward, backward-data and
              backward-weight
+ 14. attn kernels  the windowed-attention forward (#3) and backward (#4)
+             against the plain attend3 and its autograd at every GRU v9
+             attention shape at 640x192 (B=1, 8; float32 against float64,
+             bf16 against float32) and ragged ones; drel bit-identical twice
+ 15. v9 serving    GRU v9 (attention fusion) streaming depth through
+             build_evaluator, the scene loop (B=1) and the warm-up loop (B=8),
+             float32, seeded weights: launches per frame-step (conv3x3 8,
+             attend3 16); card vs CPU float32 vs CPU float64 disparity
+ 16. v9 train      scripts/train_gru --gru_version v9 at B=8, T=3, bf16: an
+             epoch, its val() and a frozen-h0 epoch, launches per step; the
+             v9 block card vs CPU over T=3 as phase 12 (a)
+ 17. v9 times      the v9 train step (ms, frame-samples/s, memory, idle
+             share, top operations), v9 serving latency and throughput, and
+             per attention shape kernels #3/#4 beside their plain versions
+             and the bound
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels as JSON, each with its time, its plain version's, the least
+the kernels as JSON, each with its launches on the main path (for
+attend3_fwd those of phases 15 and 16 together), its time, its plain
+version's, the least
 time the card could take (``bound_ms``: the bytes the function must move
 over 3.35 TB/s or its operations over the peak rate for its type, the
 larger) and a PyTorch library call's time where one computes the same
@@ -117,6 +134,18 @@ GRU_B, GRU_T = 8, 3
 # bf16-rounded operands: the kernels round dx to bf16 (2^-8) and dW to the
 # weights' bf16.
 TOL_BWD_F32, TOL_BWD_BF16 = 1e-4, 1e-2
+# phase 14, kernels #3/#4 against the plain attend3 and its autograd on the
+# same operands: the float32 forward 1e-5 absolute on O(1) inputs (the same
+# float32 arithmetic, sums in another order, expf against torch.exp); the
+# float32 gradients 1e-4 of each gradient's max against a float64 run (drel
+# sums up to B*H*W = 983,040 products per entry at scale 0, B=8, in blocked
+# float32 partial sums, as #2 does); bf16 1e-2 of max against a float32 run
+# on the bf16-rounded operands (the kernels round their outputs to bf16).
+TOL_ATTN_FWD, TOL_ATTN_GRAD, TOL_ATTN_BF16 = 1e-5, 1e-4, 1e-2
+# float32 operations per output value of attend3, for bound_ms: the forward
+# 9 logits (add, mul), their max, 9 (sub, exp, add, fma) and a divide; the
+# backward that again plus 7 per tap (u, dlogit, dq, the dk and dv gathers)
+ATTN_OPS_FWD, ATTN_OPS_BWD = 63, 126
 # the card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -126,24 +155,37 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke FAIL: {msg}")
 
 
+FEATS = (32, 64, 128, 256)  # the fusion blocks' channels at scales 0-3
+
+
 def slice_convs(version: str, height: int, width: int):
     """The kernel convs of one frame-step: (name, Cin, Cout, h, w, pad, act,
-    bias), from the block's own specs and per-scale predicate."""
+    bias), from the block's own specs and per-scale predicate. v9's fusion
+    blocks have attention units in place of v10's conv units."""
     from ssde_tpu_torch.models.recurrent import GRU_HIDDEN_SPECS, kernel_scales
 
-    spec, feats, convs = GRU_HIDDEN_SPECS[version], (32, 64, 128, 256), []
+    spec, convs = GRU_HIDDEN_SPECS[version], []
     for s, on in enumerate(kernel_scales(version)):
         if not on:
             continue
-        h, w, cx, hid, f = height >> s, width >> s, spec["in_ch"][s], spec["hid"][s], feats[s]
+        h, w, cx, hid, f = height >> s, width >> s, spec["in_ch"][s], spec["hid"][s], FEATS[s]
         convs += [(f"s{s}.cell.x", cx, 3 * hid, h, w, "zero", "none", True),
                   (f"s{s}.cell.h", hid, 2 * hid, h, w, "zero", "none", False),
                   (f"s{s}.cell.reset_h", hid, hid, h, w, "zero", "none", False)]
-        for r, c in itertools.product((1, 2), (1, 2)):
-            convs.append((f"s{s}.rcu{r}.conv{c}", f, f, h, w, "zero",
-                          "relu" if c == 1 else "none", True))
+        if version != "v9":
+            for r, c in itertools.product((1, 2), (1, 2)):
+                convs.append((f"s{s}.rcu{r}.conv{c}", f, f, h, w, "zero",
+                              "relu" if c == 1 else "none", True))
         convs.append((f"s{s}.head", f, 1, h, w, "reflect", "sigmoid", True))
     return convs
+
+
+def slice_attention(version: str, height: int, width: int):
+    """The attend3 calls of one frame-step: (C, h, w) of each, 4 per fusion
+    block (2 units x 2 AttentionConvs) at every scale for v9, none for v10."""
+    if version != "v9":
+        return []
+    return [(f, height >> s, width >> s) for s, f in enumerate(FEATS) for _ in range(4)]
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -241,6 +283,17 @@ def main() -> None:
                          "source": "ssde_tpu_torch/csrc/conv3x3.cu", "replaces": rep,
                          "launches": launch_counts[name], "max_abs_err": errs[name],
                          **times[name]}
+    errs = attn_kernels(dev)
+    serve_counts, v9_serving = serving_v9(dev, card)
+    launch_counts = gru_slice(dev, "v9")
+    gru_block_card_vs_cpu(dev, "v9")
+    times = v9_times(dev, card, *v9_serving)
+    for name, line in (("attend3_fwd", 117), ("attend3_bwd", 150)):
+        kernels[name] = {"name": name, "route": "cuda",
+                         "source": "ssde_tpu_torch/csrc/attention_win.cu",
+                         "replaces": f"ssde_tpu/ops/pallas/attention_win.py:{line}",
+                         "launches": launch_counts[name] + serve_counts.get(name, 0),
+                         "max_abs_err": errs[name], **times[name]}
     print(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s [{card}]")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -396,28 +449,7 @@ def serving(dev, card):
           f"{frame_k:.4f} ms, twin {frame_p:.4f} ms, library {frame_l:.4f} ms, bound "
           f"{frame_b:.4f} ms ({frame_by}, float32 at 67 TFLOP/s) [{card}]")
 
-    lat, carry = [], ev.initial_carry(1)
-    for i in range(3 + LATENCY_FRAMES):  # 3 warm-up frames, then the samples
-        t0 = time.perf_counter()
-        carry, disp = ev.step(carry, ev.to_device(scene[i % len(scene)]))
-        ev.to_host(disp)
-        lat.append((time.perf_counter() - t0) * 1e3)
-    lat = np.array(lat[3:])
-    print(f"streaming latency at B=1: median {np.median(lat):.3f} ms, p90 "
-          f"{np.percentile(lat, 90):.3f} ms per frame (n={lat.size}; frame upload, "
-          f"step, disparity back on the host; host clock) [{card}]")
-    runs = []
-    for _ in range(1 + WARMUP_RUNS):  # the first run is warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        predict_bucketed(ev, items, EVAL_BATCH, MIN_DEPTH, MAX_DEPTH)
-        runs.append(time.perf_counter() - t0)
-    runs = np.array(runs[1:])
-    n_frames = EVAL_BATCH * (WARMUP_FRAMES + 1)
-    print(f"warm-up protocol at B={EVAL_BATCH}: median {n_frames / np.median(runs):.2f} "
-          f"frames/s, range [{n_frames / runs.max():.2f}, {n_frames / runs.min():.2f}] "
-          f"(n={runs.size} runs of {n_frames} frames incl. warm-up; "
-          f"{EVAL_BATCH / np.median(runs):.2f} test images/s) [{card}]")
+    stream_times(ev, scene, items, card, VERSION)
 
     conv_kernel = {"name": "conv3x3_fwd", "route": "cuda",
                    "source": "ssde_tpu_torch/csrc/conv3x3.cu",
@@ -428,6 +460,38 @@ def serving(dev, card):
     del ev, cpu_models, g
     torch.cuda.empty_cache()
     return conv_kernel
+
+
+def stream_times(ev, scene, items, card, version):
+    """Streaming latency per frame at B=1 (median, p90; host clock around
+    upload, step and the disparity back) and the warm-up protocol's
+    frames/s at B=8 (phases 5 and 17)."""
+    import torch
+
+    from ssde_tpu_torch.scripts.evaluate_depth_gru_fusion import predict_bucketed
+
+    lat, carry = [], ev.initial_carry(1)
+    for i in range(3 + LATENCY_FRAMES):  # 3 warm-up frames, then the samples
+        t0 = time.perf_counter()
+        carry, disp = ev.step(carry, ev.to_device(scene[i % len(scene)]))
+        ev.to_host(disp)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat = np.array(lat[3:])
+    print(f"{version} streaming latency at B=1: median {np.median(lat):.3f} ms, p90 "
+          f"{np.percentile(lat, 90):.3f} ms per frame (n={lat.size}; frame upload, "
+          f"step, disparity back on the host; host clock) [{card}]")
+    runs = []
+    for _ in range(1 + WARMUP_RUNS):  # the first run is warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict_bucketed(ev, items, EVAL_BATCH, MIN_DEPTH, MAX_DEPTH)
+        runs.append(time.perf_counter() - t0)
+    runs = np.array(runs[1:])
+    n_frames = EVAL_BATCH * (WARMUP_FRAMES + 1)
+    print(f"{version} warm-up protocol at B={EVAL_BATCH}: median "
+          f"{n_frames / np.median(runs):.2f} frames/s, range [{n_frames / runs.max():.2f}, "
+          f"{n_frames / runs.min():.2f}] (n={runs.size} runs of {n_frames} frames incl. "
+          f"warm-up; {EVAL_BATCH / np.median(runs):.2f} test images/s) [{card}]")
 
 
 # ====================================================== the mono slice
@@ -919,25 +983,36 @@ def gru_kernels(dev):
 
 
 def _gru_counters():
+    from ssde_tpu_torch.ops.attention_win import attend3_bwd, attend3_fwd
     from ssde_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_dw, conv3x3_dx
     from ssde_tpu_torch.ops.photometric import photometric_bwd, photometric_fwd
     from ssde_tpu_torch.ops.warp_banded import warp_family_fwd
 
     return {"conv3x3_fwd": conv3x3, "conv3x3_dx": conv3x3_dx, "conv3x3_dw": conv3x3_dw,
+            "attend3_fwd": attend3_fwd, "attend3_bwd": attend3_bwd,
             "warp_family_fwd": warp_family_fwd, "photometric_fwd": photometric_fwd,
             "photometric_bwd": photometric_bwd}
 
 
-def gru_slice(dev):
-    """Phase 11: one epoch of the GRU trainer through the entry point, its
-    val(), then an epoch with the learned initial states frozen."""
+def _block_launches(version, T):
+    """Kernel launches of the block unrolled over T frames with a backward:
+    conv3x3 forward, dx and dW, attend3 forward and backward."""
+    conv, attn = len(slice_convs(version, H, W)) * T, len(slice_attention(version, H, W)) * T
+    return {"conv3x3_fwd": conv, "conv3x3_dx": conv, "conv3x3_dw": conv,
+            "attend3_fwd": attn, "attend3_bwd": attn}
+
+
+def gru_slice(dev, version=VERSION):
+    """Phase 11 (v10) and 16 (v9): one epoch of the GRU trainer through the
+    entry point, its val(), then an epoch with the learned initial states
+    frozen."""
     import torch
 
     from ssde_tpu_torch.config import MonodepthOptions
     from ssde_tpu_torch.scripts.train_gru import build_trainer
 
     opts = MonodepthOptions().parse(
-        ["--gru_version", VERSION, "--synthetic_data", "--batch_size", str(GRU_B),
+        ["--gru_version", version, "--synthetic_data", "--batch_size", str(GRU_B),
          "--len_sequence", str(GRU_T), "--num_epochs", "2", "--save_frequency", "3",
          "--num_workers", "4"])
     if (opts.height, opts.width, opts.compute_dtype, opts.num_layers) != (H, W, "bfloat16", 18):
@@ -974,14 +1049,15 @@ def gru_slice(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: fn.launches for k, fn in counters.items()}
-    steps, conv = len(history), 16 * GRU_T
-    per_step = {"conv3x3_fwd": conv, "conv3x3_dx": conv, "conv3x3_dw": conv,
+    steps = len(history)
+    per_step = {**_block_launches(version, GRU_T),
                 "warp_family_fwd": 2, "photometric_fwd": 1, "photometric_bwd": 1}
-    per_val = {"conv3x3_fwd": conv, "conv3x3_dx": 0, "conv3x3_dw": 0,
-               "warp_family_fwd": 2, "photometric_fwd": 1, "photometric_bwd": 0}
+    per_val = {k: v if k in ("conv3x3_fwd", "attend3_fwd") else 0 for k, v in per_step.items()}
+    per_val.update(warp_family_fwd=2, photometric_fwd=1)
     want = {k: steps * per_step[k] + n_val[0] * per_val[k] for k in counters}
     losses = [{k: float(v) for k, v in h.items()} for h in history]
-    print(f"gru slice: {steps} steps + {n_val[0]} val() at B={GRU_B}, T={GRU_T}, {H}x{W}, "
+    print(f"gru slice {version}: {steps} steps + {n_val[0]} val() at B={GRU_B}, T={GRU_T}, "
+          f"{H}x{W}, "
           f"{opts.compute_dtype} autocast, in {wall:.1f} s (loader, first-step set-up and "
           f"val included)")
     print("gru slice: loss per step " + " ".join(f"{l['loss']:.5f}" for l in losses))
@@ -1072,7 +1148,7 @@ class _ReluPin:
 
 
 def _block_run(block, decs, r, q, device, dtype=None, pin=None):
-    """The v10 block unrolled over len(decs) steps on ``device`` from h0:
+    """The block unrolled over len(decs) steps on ``device`` from h0:
     (outputs and hidden states, gradients of every parameter and input) of
     the scalar sum(disp * r) + sum(h_T * q), as float64 on the CPU. A
     float64 ``dtype`` runs the plain convs at every scale; ``pin`` (a
@@ -1166,6 +1242,77 @@ def _gru_step_run(opts, batch, where, net, block_dtype, loss_dtype, select, pin=
             time.perf_counter() - t0)
 
 
+def gru_block_card_vs_cpu(dev, version=VERSION):
+    """The block alone (phase 12 (a) for v10, phase 16 for v9) over T=3 at
+    B=1, float32, card (kernels) vs CPU (plain versions) and each against
+    float64, the relu masks taken from the float64 run (gru_card_vs_cpu
+    says why)."""
+    import torch
+
+    from ssde_tpu_torch.models import make_gru
+    from ssde_tpu_torch.models.common import init_weights_, sample_
+    from ssde_tpu_torch.models.recurrent import GRU_HIDDEN_SPECS
+
+    torch.backends.cudnn.allow_tf32 = False
+    counters = _gru_counters()
+    T = 3
+    block = make_gru(version, H, W)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    init_weights_(block, gen)
+    for s in range(block.n_scales):
+        sample_(block.unit(s).h0_layer1, gen, lambda t: t.normal_(0.0, 0.5, generator=gen))
+    rng = np.random.RandomState(SEED + 12)
+    shape = lambda s, c: (1, c, H >> s, W >> s)  # noqa: E731
+    decs = [{f"disp/{s}": rng.randn(*shape(s, c)).astype(np.float32)
+             for s, c in enumerate(DEC_CH)} for _ in range(T)]
+    r = [{f"disp/{s}": rng.randn(*shape(s, 1)).astype(np.float32) for s in range(4)}
+         for _ in range(T)]
+    q = [rng.randn(*shape(s, c)).astype(np.float32)
+         for s, c in enumerate(GRU_HIDDEN_SPECS[version]["hid"])]
+    pin = _ReluPin()
+    out64, g64 = _block_run(block, decs, r, q, "cpu", torch.float64, pin)
+    before = {k: fn.launches for k, fn in counters.items()}
+    card_out, card_g = _block_run(block, decs, r, q, dev, pin=pin)
+    torch.cuda.synchronize()
+    want = _block_launches(version, T)
+    launched = {k: counters[k].launches - before[k] for k in want}
+    flips = {"card": pin.flips}
+    t0 = time.perf_counter()
+    cpu_out, cpu_g = _block_run(block, decs, r, q, "cpu", pin=pin)
+    cpu_s = time.perf_counter() - t0
+    flips["CPU"] = pin.flips
+    # each gradient against its own max, but an attention conv's key bias
+    # against the largest gradient of its conv: the key bias shifts all 9
+    # logits of a pixel alike, so its true gradient is 0 and its own max
+    # is rounding
+    scale = {k: v.abs().max().item() for k, v in g64.items()}
+    for k in g64:
+        if k.endswith("key_conv.bias"):
+            conv = k[:-len("key_conv.bias")]
+            scale[k] = max(v for n, v in scale.items() if n.startswith(conv))
+    grel = lambda a, b, k: (a - b).abs().max().item() / max(scale[k], 1e-30)  # noqa: E731
+    worst = max((_rel(card_out[k], cpu_out[k]), k) for k in cpu_out)
+    worst_g = max((grel(card_g[k], cpu_g[k], k), k) for k in cpu_g)
+    e64 = {name: max(grel(v[k], g64[k], k) for k in g64)
+           for name, v in (("card", card_g), ("CPU", cpu_g))}
+    o64 = {name: max(_rel(v[k], out64[k]) for k in out64)
+           for name, v in (("card", card_out), ("CPU", cpu_out))}
+    print(f"gru block card vs CPU: {version} over T={T} at B=1, {H}x{W}, float32, every relu "
+          f"mask taken from a float64 CPU run (CPU {cpu_s:.1f} s); launches on the card "
+          f"{launched}; worst |d| / max, card vs CPU: {len(cpu_out)} outputs and hidden states "
+          f"{worst[0]:.3e} ({worst[1]}), {len(cpu_g)} gradients {worst_g[0]:.3e} "
+          f"({worst_g[1]}); against float64: outputs card {o64['card']:.3e}, CPU "
+          f"{o64['CPU']:.3e}, gradients card {e64['card']:.3e}, CPU {e64['CPU']:.3e}; "
+          f"bound {TOL_CARD_VS_CPU}")
+    print(f"    relu values whose own float32 mask differs from float64's: {flips['card']} "
+          f"(card), {flips['CPU']} (CPU) of {sum(m.numel() for m in pin.masks)}")
+    if launched != want:
+        fail(f"gru block {version}: launches {launched}, expected {want}")
+    if not max(worst[0], worst_g[0], *e64.values(), *o64.values()) <= TOL_CARD_VS_CPU:
+        fail(f"gru block {version}: card and CPU disagree")
+    del block
+
+
 def gru_card_vs_cpu(dev):
     """Phase 12: (a) the v10 block alone over T=3 at B=1, float32, card
     (kernels) vs CPU (plain versions) and each against float64; (b) one
@@ -1183,60 +1330,8 @@ def gru_card_vs_cpu(dev):
     from ssde_tpu_torch.config import Options
     from ssde_tpu_torch.data.pipeline import collate
     from ssde_tpu_torch.data.synthetic import SyntheticSeqDataset
-    from ssde_tpu_torch.models import make_gru
-    from ssde_tpu_torch.models.common import init_weights_, sample_
-    from ssde_tpu_torch.models.recurrent import GRU_HIDDEN_SPECS
 
-    torch.backends.cudnn.allow_tf32 = False
-    counters = _gru_counters()
-    # (a) the block
-    T = 3
-    block = make_gru(VERSION, H, W)
-    gen = torch.Generator().manual_seed(SEED + 11)
-    init_weights_(block, gen)
-    for s in range(block.n_scales):
-        sample_(block.unit(s).h0_layer1, gen, lambda t: t.normal_(0.0, 0.5, generator=gen))
-    rng = np.random.RandomState(SEED + 12)
-    shape = lambda s, c: (1, c, H >> s, W >> s)  # noqa: E731
-    decs = [{f"disp/{s}": rng.randn(*shape(s, c)).astype(np.float32)
-             for s, c in enumerate(DEC_CH)} for _ in range(T)]
-    r = [{f"disp/{s}": rng.randn(*shape(s, 1)).astype(np.float32) for s in range(4)}
-         for _ in range(T)]
-    q = [rng.randn(*shape(s, c)).astype(np.float32)
-         for s, c in enumerate(GRU_HIDDEN_SPECS[VERSION]["hid"])]
-    pin = _ReluPin()
-    out64, g64 = _block_run(block, decs, r, q, "cpu", torch.float64, pin)
-    before = {k: fn.launches for k, fn in counters.items()}
-    card_out, card_g = _block_run(block, decs, r, q, dev, pin=pin)
-    torch.cuda.synchronize()
-    launched = {k: fn.launches - before[k] for k, fn in counters.items() if k.startswith("conv")}
-    flips = {"card": pin.flips}
-    t0 = time.perf_counter()
-    cpu_out, cpu_g = _block_run(block, decs, r, q, "cpu", pin=pin)
-    cpu_s = time.perf_counter() - t0
-    flips["CPU"] = pin.flips
-    free = {"card": _block_run(block, decs, r, q, dev)[1],
-            "CPU": _block_run(block, decs, r, q, "cpu")[1]}
-    worst = max((_rel(card_out[k], cpu_out[k]), k) for k in cpu_out)
-    worst_g = max((_rel(card_g[k], cpu_g[k]), k) for k in cpu_g)
-    e64 = {name: max(_rel(v[k], g64[k]) for k in g64)
-           for name, v in (("card", card_g), ("CPU", cpu_g))}
-    print(f"gru block card vs CPU: v10 over T={T} at B=1, {H}x{W}, float32, every relu mask "
-          f"taken from a float64 CPU run (CPU {cpu_s:.1f} s); launches on the card {launched};"
-          f" worst |d| / max, card vs CPU: {len(cpu_out)} outputs and hidden states "
-          f"{worst[0]:.3e} ({worst[1]}), {len(cpu_g)} gradients {worst_g[0]:.3e} "
-          f"({worst_g[1]}); against float64: card {e64['card']:.3e}, CPU {e64['CPU']:.3e}; "
-          f"bound {TOL_CARD_VS_CPU}")
-    print(f"    relu values whose own float32 mask differs from float64's: {flips['card']} "
-          f"(card), {flips['CPU']} (CPU) of {sum(m.numel() for m in pin.masks)}; with their "
-          f"own masks (shown, not held) the gradients are off float64 by up to "
-          + ", ".join(f"{max(_rel(v[k], g64[k]) for k in g64):.3e} ({n})"
-                      for n, v in free.items()))
-    if launched != {k: 16 * T for k in launched}:
-        fail(f"gru block: launches {launched}, expected {16 * T} each")
-    if not max(worst[0], worst_g[0], *e64.values()) <= TOL_CARD_VS_CPU:
-        fail("gru block: card and CPU disagree")
-    del block
+    gru_block_card_vs_cpu(dev, VERSION)
     # (b) the whole step
     opts = Options(height=H, width=W, batch_size=1, len_sequence=2, gru_version=VERSION,
                    compute_dtype="float32")
@@ -1302,24 +1397,20 @@ def gru_card_vs_cpu(dev):
         fail("gru step: card and CPU disagree")
 
 
-def gru_times(dev, card):
-    """Phase 13: the GRU train step's time, memory and idle share at B=8,
-    T=3, bf16; then per conv shape the forward, dx and dW kernels beside
-    their plain versions and cuDNN."""
+def gru_step_times(dev, card, version):
+    """The GRU train step's time, memory and idle share at B=8, T=3, bf16
+    (phase 13 for v10, 17 for v9); its profile table is written to a file."""
     import torch
-    import torch.nn.functional as F
 
     from ssde_tpu_torch.config import Options
     from ssde_tpu_torch.data.pipeline import collate, to_device
     from ssde_tpu_torch.data.synthetic import SyntheticSeqDataset
-    from ssde_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
-                                            conv3x3_dx, conv3x3_reference, rot_w)
     from ssde_tpu_torch.train.state import TrainState
     from ssde_tpu_torch.train.steps_gru import build_gru_models, train_step
 
     torch.backends.cudnn.allow_tf32 = True  # the training configuration
     opts = Options(height=H, width=W, batch_size=GRU_B, len_sequence=GRU_T,
-                   gru_version=VERSION)  # bf16 autocast, the default
+                   gru_version=version)  # bf16 autocast, the default
     models = build_gru_models(opts, dev, torch.Generator().manual_seed(SEED))
     state = TrainState(models.parameters(), opts.learning_rate, 0, 1000)
     ds = SyntheticSeqDataset(H, W, n=GRU_T, length=GRU_B, seed=SEED)
@@ -1342,17 +1433,18 @@ def gru_times(dev, card):
     peak = torch.cuda.max_memory_allocated() / 2**30
     busy, wall, prof = _device_idle_share(step, IDLE_STEPS)
     frames = GRU_B * GRU_T
-    print(f"gru train step B={GRU_B} T={GRU_T} {H}x{W} bf16: {ms:.3f} ms, "
+    print(f"gru {version} train step B={GRU_B} T={GRU_T} {H}x{W} bf16: {ms:.3f} ms, "
           f"{frames * 1e3 / ms:.2f} frame-samples/s (mean of {n} after 3 warm-up; last loss "
           f"{last:.5f}); peak memory {peak:.2f} GiB; device busy {busy:.1f} ms over "
           f"{IDLE_STEPS} profiled steps: idle share {1 - busy / (IDLE_STEPS * ms):.1%} of "
           f"{IDLE_STEPS} unprofiled steps ({IDLE_STEPS * ms:.1f} ms), {1 - busy / wall:.1%} "
           f"of the profiled wall ({wall:.1f} ms) [{card}]")
     if not np.isfinite(last):
-        fail(f"gru train step: loss {last}")
+        fail(f"gru {version} train step: loss {last}")
     table = prof.key_averages().table(sort_by="device_time_total", row_limit=30)
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "gru_profile_b8t3.txt"), "w") as f:
+    name = "gru_profile_b8t3.txt" if version == VERSION else f"gru_{version}_profile_b8t3.txt"
+    with open(os.path.join("chiprun_out", name), "w") as f:
         f.write(f"{card}\n{table}\n")
     print(f"  top device operations over {IDLE_STEPS} profiled steps:")
     for line in table.splitlines()[:16]:
@@ -1360,13 +1452,26 @@ def gru_times(dev, card):
     del models, state, batch, prof
     torch.cuda.empty_cache()
 
+
+def gru_times(dev, card):
+    """Phase 13: the v10 train step's time, memory and idle share at B=8,
+    T=3, bf16; then per conv shape the forward, dx and dW kernels beside
+    their plain versions and cuDNN."""
+    import torch
+    import torch.nn.functional as F
+
+    from ssde_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_dw, conv3x3_dw_reference,
+                                            conv3x3_dx, conv3x3_reference, rot_w)
+
+    gru_step_times(dev, card, VERSION)
+
     # per conv shape at B=8: kernels vs plain versions vs cuDNN
     torch.backends.cudnn.allow_tf32 = False
     conv_bwd = torch.ops.aten.convolution_backward
     convs = slice_convs(VERSION, H, W)
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     per = {}
-    print(f"gru conv times at B={GRU_B} on {card} (CUDA events, 10 launches after 2 warm-up, "
+    print(f"gru conv times at B={GRU_B} on {card} (CUDA events, 5 launches after 2 warm-up, "
           "order plain, kernel, kernel, plain; library: cuDNN F.conv2d, and "
           "aten.convolution_backward for backward-data and backward-weight, as autograd "
           "of F.conv2d calls it; zero padding 1, no act; TF32 off)")
@@ -1393,8 +1498,8 @@ def gru_times(dev, card):
             tag = "bf16" if dtype == torch.bfloat16 else "f32 "
             row = []
             for name, (k, p, lib) in cases.items():
-                t = [cuda_ms(fn, iters=10, warmup=2) for fn in (p, k, k, p)]
-                tk, tp, tl = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, cuda_ms(lib, 10, 2)
+                t = [cuda_ms(fn, iters=5, warmup=2) for fn in (p, k, k, p)]
+                tk, tp, tl = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, cuda_ms(lib, 5, 2)
                 flops, nbytes = conv_cost(cin, cout, h, w, GRU_B, elem,
                                           4 if name == "dw" else None)
                 per[(dtype, name, cin, cout, h, w, pad, act, has_b)] = (
@@ -1424,6 +1529,264 @@ def gru_times(dev, card):
                                             "bound_by": by, "library_ms": tl}
     torch.cuda.empty_cache()
     return times
+
+
+# ================================================== GRU v9 (attention)
+
+
+def _attn_operands(dev, B, C, h, w, gen):
+    """q, kp, vp (O(1)), rel and an output gradient, float32 on the card."""
+    import torch
+
+    q = torch.randn(B, C, h, w, device=dev, generator=gen)
+    kp = torch.randn(B, C, h + 2, w + 2, device=dev, generator=gen)
+    vp = torch.randn(B, C, h + 2, w + 2, device=dev, generator=gen)
+    rel = torch.randn(9, C, device=dev, generator=gen) * 0.5
+    g = torch.randn(B, C, h, w, device=dev, generator=gen)
+    return q, kp, vp, rel, g
+
+
+def _attn_plain_grads(q, kp, vp, rel, g):
+    """(dq, dkp, dvp, drel): autograd of the plain attend3, in q's dtype."""
+    import torch
+
+    from ssde_tpu_torch.ops.attention_win import attend3_reference
+
+    leaves = [t.detach().requires_grad_() for t in (q, kp, vp, rel)]
+    return torch.autograd.grad(attend3_reference(*leaves), leaves, g)
+
+
+def attn_kernels(dev):
+    """Phase 14: kernels #3 and #4 against the plain attend3 and its
+    autograd on the same operands, at every attention shape of the v9
+    frame-step at 640x192 (B=1 and 8) and at ragged shapes, float32 (also
+    held against float64) and bf16; drel of #4 bit-identical twice; the
+    autograd Function gives #4's gradients."""
+    import torch
+
+    from ssde_tpu_torch.ops.attention_win import (attend3, attend3_bwd, attend3_fwd,
+                                                  attend3_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    cases = [(B, C, h, w) for C, h, w in sorted(set(slice_attention("v9", H, W)))
+             for B in (1, GRU_B)]
+    cases += [(2, 5, 1, 7), (3, 3, 2, 33), (2, 17, 9, 45), (1, 40, 37, 31)]
+    errs = {"attend3_fwd": 0.0, "attend3_bwd": 0.0}
+    worst = {"fwd f32": 0.0, "fwd f32 vs f64": 0.0, "plain fwd f32 vs f64": 0.0,
+             "bwd f32": 0.0, "fwd bf16": 0.0, "bwd bf16": 0.0}
+    print(f"attn kernels: #3/#4 against the plain attend3 and its autograd, {len(cases)} "
+          f"cases x (float32, bf16); bounds: forward float32 {TOL_ATTN_FWD} absolute, "
+          f"gradients float32 {TOL_ATTN_GRAD} of max against float64, bf16 {TOL_ATTN_BF16} "
+          f"of max against float32 on the bf16-rounded operands")
+    t0 = time.perf_counter()
+    for B, C, h, w in cases:
+        q, kp, vp, rel, g = _attn_operands(dev, B, C, h, w, gen)
+        d64 = [t.double() for t in (q, kp, vp, rel, g)]
+        out = attend3_fwd(q, kp, vp, rel)
+        ref, ref64 = attend3_reference(q, kp, vp, rel), attend3_reference(*d64[:4])
+        got = attend3_bwd(q, kp, vp, rel, g)
+        want = _attn_plain_grads(*d64)
+        torch.cuda.synchronize()
+        if out.dtype != q.dtype or out.shape != q.shape or any(
+                a.shape != b.shape or a.dtype != (torch.float32) for a, b in zip(got, want)):
+            fail(f"attn kernels: outputs {out.dtype} {tuple(out.shape)}, "
+                 f"{[(a.dtype, tuple(a.shape)) for a in got]}")
+        f32 = {"fwd f32": (out - ref).abs().max().item(),
+               "fwd f32 vs f64": (out.double() - ref64).abs().max().item(),
+               "plain fwd f32 vs f64": (ref.double() - ref64).abs().max().item(),
+               "bwd f32": max(_rel(a.double(), b) for a, b in zip(got, want))}
+        errs["attend3_fwd"] = max(errs["attend3_fwd"], f32["fwd f32"])
+        errs["attend3_bwd"] = max([errs["attend3_bwd"]] + [
+            (a.double() - b).abs().max().item() for a, b in zip(got, want)])
+        qb, kb, vb, gb = (t.bfloat16() for t in (q, kp, vp, g))
+        outb = attend3_fwd(qb, kb, vb, rel)
+        refb = attend3_reference(qb.float(), kb.float(), vb.float(), rel)
+        gotb = attend3_bwd(qb, kb, vb, rel, gb)
+        wantb = _attn_plain_grads(qb.float(), kb.float(), vb.float(), rel, gb.float())
+        torch.cuda.synchronize()
+        if outb.dtype != torch.bfloat16 or [a.dtype for a in gotb] != [torch.bfloat16] * 3 + [
+                torch.float32]:
+            fail(f"attn kernels: bf16 outputs {outb.dtype}, {[a.dtype for a in gotb]}")
+        bf = {"fwd bf16": _rel(outb.float(), refb),
+              "bwd bf16": max(_rel(a.float(), b) for a, b in zip(gotb, wantb))}
+        for k, v in {**f32, **bf}.items():
+            worst[k] = max(worst[k], v)
+        print(f"  B={B} C={C:3d} {h}x{w}: f32 fwd abs {f32['fwd f32']:.2e} (vs f64 "
+              f"{f32['fwd f32 vs f64']:.2e}, plain {f32['plain fwd f32 vs f64']:.2e}), grads "
+              f"{f32['bwd f32']:.2e} of max; bf16 fwd {bf['fwd bf16']:.2e}, grads "
+              f"{bf['bwd bf16']:.2e} of max")
+        if not (f32["fwd f32"] <= TOL_ATTN_FWD and f32["bwd f32"] <= TOL_ATTN_GRAD
+                and max(bf.values()) <= TOL_ATTN_BF16):
+            fail(f"attn kernels disagree with the plain version at B={B} C={C} {h}x{w}")
+        del q, kp, vp, rel, g, d64, out, ref, ref64, got, want, qb, kb, vb, gb, gotb, wantb
+        torch.cuda.empty_cache()
+    # determinism of drel, and the autograd Function against #4, at scale 0, B=8, bf16
+    q, kp, vp, rel, g = (t.bfloat16() if t.dim() == 4 else t for t in
+                         _attn_operands(dev, GRU_B, FEATS[0], H, W, gen))
+    first, second = attend3_bwd(q, kp, vp, rel, g), attend3_bwd(q, kp, vp, rel, g)
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    leaves = [t.detach().requires_grad_() for t in (q, kp, vp, rel)]
+    attend3(*leaves).backward(g)
+    via_fn = [torch.equal(t.grad, a) for t, a in zip(leaves, first)]
+    print(f"attn kernels: {2 * len(cases)} cases ok in {time.perf_counter() - t0:.1f} s; "
+          + ", ".join(f"worst {k} {v:.3e}" for k, v in worst.items())
+          + f"; a second #4 at B={GRU_B} C={FEATS[0]} {H}x{W} bf16 bit-identical "
+          f"(dq, dkp, dvp, drel): {same}; attend3's autograd Function gives #4's: {via_fn}")
+    if not all(same + via_fn):
+        fail("attn kernels: #4 is not deterministic, or autograd does not reach it")
+    del q, kp, vp, rel, g, first, second, leaves
+    torch.cuda.empty_cache()
+    return errs
+
+
+def serving_v9(dev, card):
+    """Phase 15: GRU v9 streaming depth through the port's entry points, as
+    phase 3 runs v10, then card vs CPU. The chained softmaxes amplify
+    float32 rounding, so the card's float32 disparity is held against a
+    float64 CPU run (plain versions) at twice the CPU float32 run's own
+    error against it. Returns (launch counts, (evaluator, scene, items))."""
+    import torch
+
+    from ssde_tpu_torch.config import Options
+    from ssde_tpu_torch.data.synthetic import scene_frames
+    from ssde_tpu_torch.eval.gru_runners import GRUStreamEvaluator
+    from ssde_tpu_torch.models.common import sample_
+    from ssde_tpu_torch.models.resnet import randomize_bn_stats_
+    from ssde_tpu_torch.ops.attention_win import attend3_bwd, attend3_fwd
+    from ssde_tpu_torch.ops.conv3x3 import conv3x3
+    from ssde_tpu_torch.scripts.evaluate_depth_gru_fusion import (
+        build_evaluator, predict_bucketed, predict_scenes)
+    from ssde_tpu_torch.train.steps_gru import GRUModels
+
+    opt = Options()
+    opt.gru_version, opt.height, opt.width, opt.num_layers = "v9", H, W, 18
+    ev = build_evaluator(opt, dev, seed=SEED)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    randomize_bn_stats_(ev.models.encoder, gen)
+    for s in range(ev.models.gru.n_scales):
+        sample_(ev.models.gru.unit(s).h0_layer1, gen,
+                 lambda t: t.normal_(0.0, 0.1, generator=gen))
+    scene = scene_frames(H, W, SCENE_FRAMES, batch=1, seed=SEED)
+    seq = scene_frames(H, W, WARMUP_FRAMES + 1, batch=EVAL_BATCH, seed=SEED + 1)
+    items = [(i, [f[i:i + 1] for f in seq[:WARMUP_FRAMES]], seq[-1][i:i + 1])
+             for i in range(EVAL_BATCH)]
+    steps = SCENE_FRAMES + WARMUP_FRAMES + 1
+    per_step = {"conv3x3_fwd": len(slice_convs("v9", H, W)),
+                "attend3_fwd": len(slice_attention("v9", H, W)), "attend3_bwd": 0}
+
+    torch.cuda.synchronize()
+    conv3x3.launches = attend3_fwd.launches = attend3_bwd.launches = 0
+    scene_out = predict_scenes(ev, [scene], MIN_DEPTH, MAX_DEPTH)[0]
+    warm_out = predict_bucketed(ev, items, EVAL_BATCH, MIN_DEPTH, MAX_DEPTH)
+    torch.cuda.synchronize()
+    counts = {"conv3x3_fwd": conv3x3.launches, "attend3_fwd": attend3_fwd.launches,
+              "attend3_bwd": attend3_bwd.launches}
+    want = {k: v * steps for k, v in per_step.items()}
+    print(f"v9 serving: GRU v9, ResNet18, {H}x{W}, float32; scene {SCENE_FRAMES} frames at "
+          f"B=1 + warm-up {WARMUP_FRAMES}+1 frames at B={EVAL_BATCH} = {steps} frame-steps; "
+          f"launches {counts} (expected {per_step} per frame-step: {want})")
+    if counts != want:
+        fail(f"v9 serving: launches {counts}, expected {want}")
+    lo, hi = 1.0 / MAX_DEPTH, 1.0 / MIN_DEPTH
+    for name, outs in (("scene", scene_out), ("warmup", warm_out)):
+        for d in outs:
+            if d.shape != (H, W) or not np.isfinite(d).all() or not lo < d.min() <= d.max() < hi:
+                fail(f"v9 serving {name}: output {d.shape} not finite in ({lo}, {hi})")
+        print(f"v9 serving {name}: {len(outs)} x ({H}, {W}) scaled disp "
+              f"[{min(d.min() for d in outs):.4f}, {max(d.max() for d in outs):.4f}]")
+    if np.abs(np.stack(scene_out[1:]) - scene_out[0]).max() == 0:
+        fail("v9 serving: the streamed frames all gave one output")
+
+    def on_cpu(dtype):
+        models = GRUModels(*(copy.deepcopy(m).cpu().to(dtype) for m in
+                             (ev.models.encoder, ev.models.depth, ev.models.gru)),
+                           None, ev.models.opts)
+        cpu = GRUStreamEvaluator(models)
+        if dtype == torch.float64:  # the kernels take float32 and bf16 only
+            models.gru.kernel_scales = (False,) * models.gru.n_scales
+            cpu.to_device = lambda f: torch.from_numpy(
+                np.asarray(f, np.float64)).permute(0, 3, 1, 2).contiguous()
+            cpu.to_host = lambda d: d[:, 0].numpy()
+        t0 = time.perf_counter()
+        out = cpu.predict_scene(scene[:4])
+        return out, time.perf_counter() - t0
+
+    (cpu32, t32), (cpu64, t64) = on_cpu(torch.float32), on_cpu(torch.float64)
+    card_out = ev.predict_scene(scene[:4])
+    err = lambda a, b: max(np.abs(x.astype(np.float64) - y).max() for x, y in zip(a, b))  # noqa
+    e_card, e_cpu, e_cc = err(card_out, cpu64), err(cpu32, cpu64), err(card_out, cpu32)
+    print(f"v9 card vs CPU over 4 streamed frames at B=1: max |d disp| card float32 vs CPU "
+          f"float64 {e_card:.3e}, CPU float32 vs float64 {e_cpu:.3e}, card vs CPU float32 "
+          f"{e_cc:.3e}; bound for the card: 2 x the CPU's own error = {2 * e_cpu:.3e} "
+          f"(CPU float32 {t32:.1f} s, float64 {t64:.1f} s)")
+    if not e_card <= 2 * e_cpu:
+        fail(f"v9 serving: the card's float32 disparity is {e_card:.3e} off float64, more "
+             f"than twice the CPU's {e_cpu:.3e}")
+    return counts, (ev, scene, items)
+
+
+def v9_times(dev, card, ev, scene, items):
+    """Phase 17: the v9 train step; v9 serving latency and throughput; per
+    attention shape the kernels #3 and #4 beside their plain versions (the
+    plain backward is autograd of the plain forward, which it runs too) and
+    the bound, at B=8 in bf16 (training) and B=1 in float32 (serving).
+    Returns the kernels' entries for one frame-step at B=8, bf16."""
+    import torch
+
+    from ssde_tpu_torch.ops.attention_win import attend3_bwd, attend3_fwd, attend3_reference
+
+    gru_step_times(dev, card, "v9")
+    stream_times(ev, scene, items, card, "v9")
+    del ev
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    print(f"attend3 times on {card} (CUDA events, 10 launches after 2 warm-up, order plain, "
+          f"kernel, kernel, plain; bound: the larger of the bytes (q, kp, vp read, out written;"
+          f" backward q, kp, vp, g read, dq, dkp, dvp written) over 3.35 TB/s and "
+          f"{ATTN_OPS_FWD} / {ATTN_OPS_BWD} float32 operations per value over 67 TFLOP/s; "
+          f"library: none, no single PyTorch call computes this function)")
+    frame = {}
+    for B, dtype in ((GRU_B, torch.bfloat16), (1, torch.float32)):
+        elem = 2 if dtype == torch.bfloat16 else 4
+        tag = "bf16" if dtype == torch.bfloat16 else "f32 "
+        total = {k: [0.0] * 4 for k in ("attend3_fwd", "attend3_bwd")}
+        calls = slice_attention("v9", H, W)
+        for C, h, w in sorted(set(calls), key=lambda c: -c[1]):
+            n = calls.count((C, h, w))
+            q, kp, vp, rel, g = (t.to(dtype) if t.dim() == 4 else t
+                                 for t in _attn_operands(dev, B, C, h, w, gen))
+            leaves = [t.detach().requires_grad_() for t in (q, kp, vp, rel)]
+            pairs = {"attend3_fwd": (lambda: attend3_fwd(q, kp, vp, rel),
+                                     lambda: attend3_reference(q, kp, vp, rel)),
+                     "attend3_bwd": (lambda: attend3_bwd(q, kp, vp, rel, g),
+                                     lambda: torch.autograd.grad(
+                                         attend3_reference(*leaves), leaves, g))}
+            n_out, n_pad = B * C * h * w, B * C * (h + 2) * (w + 2)
+            cost = {"attend3_fwd": (ATTN_OPS_FWD * n_out, elem * (2 * n_out + 2 * n_pad) + 36 * C),
+                    "attend3_bwd": (ATTN_OPS_BWD * n_out,
+                                    elem * (3 * n_out + 4 * n_pad) + 72 * C)}
+            row = []
+            for name, (k, p) in pairs.items():
+                t = [cuda_ms(fn, iters=10, warmup=2) for fn in (p, k, k, p)]
+                tk, tp = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+                bms, _ = bound(*cost[name], "float32")
+                for i, v in enumerate((tk, tp, cost[name][0], cost[name][1])):
+                    total[name][i] += n * v
+                row.append(f"{name[8:]} {tk:.4f} / {tp:.4f} ms, bound {bms:.4f} ms "
+                           f"({cost[name][1] / tk / 1e6:.0f} GB/s)")
+            print(f"  {tag} B={B} C={C:3d} {h}x{w} ({n} per frame-step): kernel / plain: "
+                  + "; ".join(row) + f" [{card}]")
+            del q, kp, vp, rel, g, leaves
+        torch.cuda.empty_cache()
+        for name, (tk, tp, flops, nbytes) in total.items():
+            bms, by = bound(flops, nbytes, "float32")
+            print(f"attend3 {name[8:]}: one v9 frame-step ({len(calls)} calls) at B={B} "
+                  f"{tag.strip()}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound {bms:.4f} ms "
+                  f"({by}; {nbytes / 1e9:.3f} GB) [{card}]")
+            if dtype == torch.bfloat16:
+                frame[name] = {"ms": tk, "plain_ms": tp, "bound_ms": bms, "bound_by": by,
+                               "library_ms": None}
+    return frame
 
 
 if __name__ == "__main__":

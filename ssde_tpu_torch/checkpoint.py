@@ -99,9 +99,24 @@ def pose_decoder_from_flax(params: Mapping) -> StateDict:
     return sd
 
 
+def _attention_conv(sd: StateDict, prefix: str, p: Mapping) -> None:
+    """Inverse of ``_convert_attention_conv`` (:279-296): the q/k/v 1x1
+    kernels and biases, and the relative embeddings back to the reference's
+    shapes, (C/2, k) -> (C/2, 1, 1, k, 1) and (C/2, 1, 1, 1, k), a shared
+    (k,) -> (1, 1, 1, k, 1) and (1, 1, 1, 1, k)."""
+    for conv in ("key_conv", "query_conv", "value_conv"):
+        sd[f"{prefix}.{conv}.weight"] = _oihw(p[conv]["kernel"])
+        if "bias" in p[conv]:
+            sd[f"{prefix}.{conv}.bias"] = _t(p[conv]["bias"])
+    for rel, shape in (("rel_h", (1, 1, -1, 1)), ("rel_w", (1, 1, 1, -1))):
+        r = np.asarray(p[rel])
+        sd[f"{prefix}.{rel}"] = _t(r.reshape((r.shape[0] if r.ndim == 2 else 1,) + shape))
+
+
 def gru_from_flax(params: Mapping) -> StateDict:
     """``ssde_tpu.models.ConvGRUBlocks`` params -> ``ConvGRUBlocks``
-    state_dict (GRU cells, attention-free fusion blocks)."""
+    state_dict (GRU cells; fusion blocks with residual conv units, or with
+    residual attention units, ``_convert_rcu`` :299-309)."""
     sd: StateDict = {}
     for name in sorted(params):
         p = params[name]
@@ -113,6 +128,9 @@ def gru_from_flax(params: Mapping) -> StateDict:
         elif name.startswith("fusion_"):
             for rcu in sorted(k for k in p if k.startswith("resConfUnit")):
                 for i in (1, 2):
+                    if f"atten{i}" in p[rcu]:
+                        _attention_conv(sd, f"{name}.{rcu}.atten{i}", p[rcu][f"atten{i}"])
+                        continue
                     c = p[rcu][f"conv{i}"]
                     sd[f"{name}.{rcu}.conv{i}.weight"] = _oihw(c["kernel"])
                     sd[f"{name}.{rcu}.conv{i}.bias"] = _t(c["bias"])

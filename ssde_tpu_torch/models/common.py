@@ -37,10 +37,18 @@ def init_conv_(conv: nn.Conv2d, generator: torch.Generator) -> None:
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
-    """Default-initialise every Conv2d of ``module``, in registration order."""
-    for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            init_conv_(m, generator)
+    """Default-initialise every Conv2d of ``module``, in registration order;
+    a submodule with an ``init_weights_`` method of its own (the attention
+    modules, which follow the reference's init) runs that instead."""
+    if isinstance(module, nn.Conv2d):
+        init_conv_(module, generator)
+        return
+    for child in module.children():
+        own = getattr(child, "init_weights_", None)
+        if own is not None:
+            own(generator)
+        else:
+            init_weights_(child, generator)
 
 
 def kernel_dtype(x: torch.Tensor) -> torch.dtype:

@@ -1,9 +1,9 @@
 """Fusion blocks of the ConvGRU heads on NCHW (counterpart of
 ``ssde_tpu/models/fusion.py``).
 
-Only what GRU v10 runs: ``GRUFusionBlock_v2`` without attention and the
-conv-free ``UpscalePS`` (reference rnn.py:739-792). The attention fusion
-blocks arrive with v9.
+What GRU v9 and v10 run: ``GRUFusionBlock_v2``, with residual attention
+units (v9) or residual conv units (v10, and v9 with ``--disable_attention``),
+and the conv-free ``UpscalePS`` (reference rnn.py:739-792).
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch.nn as nn
 
 from ..ops.image import pixel_shuffle
+from .attention import ResidualAttentionUnit
 from .common import Conv3x3, ResidualConvUnit
 
 
@@ -29,22 +30,34 @@ class UpscalePS(nn.Module):
 class GRUFusionBlock_v2(nn.Module):
     """rnn.FeatureFusionBlock_v2 (reference rnn.py:739-779):
     pre = rcu1(i1) + i2; out = sigmoid(Conv3x3(rcu2(pre)));
-    up output = PixelShuffle(tanh(relu(pre))) when ``up``."""
+    up output = PixelShuffle(tanh(relu(pre))) when ``up``. The residual
+    units are ``ResidualAttentionUnit(shared_rel=False)`` with
+    ``attention`` (v9), ``ResidualConvUnit`` without it.
+
+    ``kernel`` routes the 3x3 convs (the conv units' and the head's)
+    through the conv3x3 kernel. The attention units always take their
+    kernel path (attend3): on the TPU the fused attention kernel serves
+    every scale of the 640x192 block (``fits_attend3``), so here it runs
+    at all four."""
 
     def __init__(self, features: int, up: bool = True, attention: bool = False,
                  device=None):
         super().__init__()
+        self.up, self.attention = up, attention
         if attention:
-            raise NotImplementedError("attention fusion blocks arrive with GRU v9")
-        self.up = up
-        self.resConfUnit1 = ResidualConvUnit(features, device)
-        self.resConfUnit2 = ResidualConvUnit(features, device)
+            self.resConfUnit1, self.resConfUnit2 = (
+                ResidualAttentionUnit(features, shared_rel=False, device=device)
+                for _ in range(2))
+        else:
+            self.resConfUnit1, self.resConfUnit2 = (
+                ResidualConvUnit(features, device) for _ in range(2))
         self.conv3x3 = Conv3x3(features, 1, device=device)
         self.upscale = UpscalePS(2) if up else None
 
     def forward(self, input_1, input_2, kernel: bool = False):
-        pre = self.resConfUnit1(input_1, kernel) + input_2
-        out = self.conv3x3(self.resConfUnit2(pre, kernel), act="sigmoid",
+        unit_kernel = self.attention or kernel
+        pre = self.resConfUnit1(input_1, unit_kernel) + input_2
+        out = self.conv3x3(self.resConfUnit2(pre, unit_kernel), act="sigmoid",
                            kernel=kernel)
         if self.up:
             # resConfUnit2's in-place relu has mutated `pre` by the time the

@@ -1,10 +1,12 @@
 """ConvGRU recurrent depth heads on NCHW (counterpart of
 ``ssde_tpu/models/recurrent.py``).
 
-Only the v10 wiring is ported (reference rnn.py:472-569); the other versions
-raise ``NotImplementedError`` until their turn. Parameters carry the
-reference's names: ``cgru_{s}.h0_layer1`` (1, C, H, W),
-``cgru_{s}.cgru_1.conv_gates`` / ``conv_can`` and ``fusion_{s}.*``.
+The v9 and v10 wiring is ported (reference rnn.py:472-569): the same GRU
+cells and fusion blocks, with residual attention units in v9's fusion blocks
+(unless ``attention=False``, ``--disable_attention``) and residual conv units
+in v10's. The other versions raise ``NotImplementedError`` until their turn.
+Parameters carry the reference's names: ``cgru_{s}.h0_layer1`` (1, C, H,
+W), ``cgru_{s}.cgru_1.conv_gates`` / ``conv_can`` and ``fusion_{s}.*``.
 
 Each block step is ``(dec_outputs, hidden) -> (hidden', disp)``; callers
 carry the hidden state across frames.
@@ -24,6 +26,7 @@ from .fusion import GRUFusionBlock_v2
 # per-version input/hidden channels per scale, of the versions ported so far
 # (the JAX package's GRU_HIDDEN_SPECS has all of them)
 GRU_HIDDEN_SPECS = {
+    "v9": dict(in_ch=(32, 64, 128, 128), hid=(32, 64, 128, 256), cell="gru"),
     "v10": dict(in_ch=(32, 64, 128, 128), hid=(32, 64, 128, 256), cell="gru"),
 }
 
@@ -37,7 +40,9 @@ def kernel_scales(version: str) -> Tuple[bool, ...]:
     ``_fwd_kernel`` on the TPU: the GRU scales below the hardwired scale 3
     with ``hid <= 64``. Its remaining terms (``W >= 256``, the 128-lane
     padding budget) are lane-layout conditions with no counterpart in NCHW,
-    so the choice here depends on the version only. For v10: scales 0 and 1.
+    so the choice here depends on the version only. For v9 and v10: scales
+    0 and 1. (The attention units of v9 take the attend3 kernel at every
+    scale: ``models/fusion.GRUFusionBlock_v2``.)
     """
     hid = GRU_HIDDEN_SPECS[version]["hid"]
     return tuple(s < 3 and h <= 64 for s, h in enumerate(hid))
@@ -117,12 +122,13 @@ class ConvGRUBlocks(nn.Module):
         self.n_scales = len(spec["hid"])
         self.kernel_scales = kernel_scales(version)
         feats = (32, 64, 128, 256)
+        # v10's fusion blocks never have attention (recurrent.py:317-324)
+        att = attention and version != "v10"
         for s in range(self.n_scales):
             setattr(self, f"cgru_{s}", RecurrentUnit(
                 spec["in_ch"][s], spec["hid"][s], height >> s, width >> s, device))
-            # v10's fusion blocks have no attention (recurrent.py:319)
             setattr(self, f"fusion_{s}", GRUFusionBlock_v2(
-                feats[s], up=s > 0, attention=False, device=device))
+                feats[s], up=s > 0, attention=att, device=device))
 
     def unit(self, s: int) -> RecurrentUnit:
         return getattr(self, f"cgru_{s}")

@@ -26,7 +26,8 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCES = tuple(PACKAGE_DIR / "csrc" / name for name in
-                ("conv3x3.cu", "warp_family.cu", "photometric.cu"))
+                ("conv3x3.cu", "warp_family.cu", "photometric.cu",
+                 "attention_win.cu"))
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "ssde_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +46,10 @@ SIGNATURES = {
     "ssde_photometric_fwd": [_P, _P, _P, _I, _I, _I, _I, _I],
     # pred, targ, gout, dpred, G, B, C, H, W
     "ssde_photometric_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
+    # q, kp, vp, rel, out, B, C, H, W, dtype
+    "ssde_attend3_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I],
+    # q, kp, vp, rel, g, dq, dkp, dvp, partial, drel, B, C, H, W, n_partials, dtype
+    "ssde_attend3_bwd": [_P] * 10 + [_I] * 6,
 }
 
 

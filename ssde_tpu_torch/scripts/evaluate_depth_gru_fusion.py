@@ -11,7 +11,8 @@ Protocols (selected with --protocol):
   mdp        plain monodepth2 baseline (not ported yet)
 
 Run: python -m ssde_tpu_torch.scripts.evaluate_depth_gru_fusion
-       --gru_version v10 --load_weights_folder <folder of .pth files> ...
+       --gru_version v9 --load_weights_folder <folder of .pth files> ...
+(GRU v9 and v10; the other versions raise ``NotImplementedError``.)
 The bucketed single/warm-up loop and the scene loop are functions
 (:func:`predict_bucketed`, :func:`predict_scenes`) that other programs call.
 """

@@ -15,9 +15,9 @@ Precision as in the JAX package: the networks run under autocast in
 ``compute_dtype``; the kernel convs of the block cast their operands to it
 (``models/common.kernel_dtype``) and the hidden state is carried in it,
 while the ``h0_layer1`` parameters, the geometry, the warp and the loss
-stay float32. Only GRU v10 is ported. No activation is rematerialised:
-B*T = 24 at the benchmark shape, and the JAX ``_remat_mode`` policies are
-TPU memory workarounds.
+stay float32. GRU v9 (attention fusion) and v10 are ported. No activation
+is rematerialised: B*T = 24 at the benchmark shape, and the JAX
+``_remat_mode`` policies and ``remat_attention`` are TPU memory workarounds.
 """
 
 from __future__ import annotations
@@ -37,15 +37,17 @@ from .state import TrainState
 PRE_DISP_VERSIONS = {"v3", "v4", "v6", "v7", "v8", "v9", "v10"}
 
 
+PORTED_VERSIONS = ("v9", "v10")
+
+
 def check_version(opts: Options) -> None:
-    """Raise ``NotImplementedError`` for every GRU version but v10, naming
-    the slice of the port that brings it."""
+    """Raise ``NotImplementedError`` for every GRU version but v9 and v10,
+    naming the slice of the port that brings it."""
     v = opts.gru_version
-    if v != "v10":
-        later = ("slice 4 (GRU v9, attention fusion)" if v == "v9"
-                 else "slice 5 (GRU v1-v8 and the v4/v6/v7 heads)")
+    if v not in PORTED_VERSIONS:
         raise NotImplementedError(
-            f"GRU {v}: the port runs GRU v10 only; {v} comes with {later}")
+            f"GRU {v}: the port runs GRU v9 and v10 only; {v} comes with slice 5 "
+            "(GRU v1-v8 and the v4/v6/v7 heads)")
 
 
 def check_supported(opts: Options) -> None:
@@ -143,7 +145,7 @@ def preprocess_gru_batch(batch: Dict[str, torch.Tensor], opts: Options,
 
 
 def gru_unroll(models: GRUModels, dec: Dict[str, torch.Tensor], B: int, T: int):
-    """The v10 block over T (``steps_gru.py:143-184``): per-scale decoder
+    """The v9/v10 block over T (``steps_gru.py:143-184``): per-scale decoder
     outputs (B*T, C, h, w), B-major -> ``disp/{s}`` (B*T, 1, h, w),
     B-major. The hidden state starts from h0, in the compute dtype."""
     hidden = models.gru.initial_state(B)

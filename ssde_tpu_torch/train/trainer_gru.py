@@ -1,5 +1,5 @@
 """The recurrent sequence trainer (counterpart of
-``ssde_tpu/train/trainer_gru.py``): GRU v10 over T-frame sequences with the
+``ssde_tpu/train/trainer_gru.py``): GRU v9 or v10 over T-frame sequences with the
 min-reprojection loss at every timestep, on the port's
 :class:`~ssde_tpu_torch.train.trainer.TrainerBase` loop.
 

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain twins, on the card:
 conv3x3 (#1) forward and as dx, its weight gradient (#2), the family warp
-(#7) and the photometric error forward and backward (#5, #6).
+(#7), the photometric error forward and backward (#5, #6) and the windowed
+attention forward and backward (#3, #4).
 
 These tests need a CUDA card (sm_90a) and nvcc, and skip elsewhere. They
 import no JAX and run on the card with
@@ -21,6 +22,9 @@ import itertools
 import pytest
 import torch
 
+from ssde_tpu_torch.models.attention import AttentionConv
+from ssde_tpu_torch.ops.attention_win import (attend3, attend3_bwd, attend3_fwd,
+                                              attend3_reference)
 from ssde_tpu_torch.ops.conv3x3 import (ACTS, act_grad, conv3x3, conv3x3_dw, conv3x3_dx,
                                         conv3x3_reference)
 from ssde_tpu_torch.ops.photometric import (photometric_bwd, photometric_bwd_reference,
@@ -249,3 +253,107 @@ def test_new_kernels_refuse_instead_of_falling_back(dev):
         warp_family_fwd(img, grids.cpu())
     assert (warp_family_fwd.launches, photometric_fwd.launches,
             photometric_bwd.launches) == before
+
+
+# ------------------------------------------------ windowed attention (#3, #4)
+# Bounds as in chip_smoke.py phase 14: the float32 forward 1e-5 absolute on
+# O(1) operands; float32 gradients 1e-4 of each gradient's max against
+# autograd of the plain version in float64; bf16 1e-2 of max against the
+# float32 plain version on the same bf16-rounded operands. The shapes are
+# the ragged ones (chip_smoke.py holds the v9 shapes at 640x192): 1-pixel
+# maps, widths and heights off the 16x32 forward and 8x32 backward tiles.
+
+
+def _attn(dev, B, C, H, W, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, C, H, W, device=dev, generator=g)
+    kp = torch.randn(B, C, H + 2, W + 2, device=dev, generator=g)
+    vp = torch.randn(B, C, H + 2, W + 2, device=dev, generator=g)
+    rel = torch.randn(9, C, device=dev, generator=g) * 0.5
+    return q, kp, vp, rel, torch.randn(B, C, H, W, device=dev, generator=g)
+
+
+def _attn_grads(q, kp, vp, rel, g):
+    leaves = [t.detach().requires_grad_() for t in (q, kp, vp, rel)]
+    return torch.autograd.grad(attend3_reference(*leaves), leaves, g)
+
+
+def _rel(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,H,W", [(1, 1, 1, 1), (2, 3, 1, 7), (2, 5, 2, 33),
+                                     (3, 17, 9, 45), (1, 40, 37, 31), (2, 32, 16, 64)])
+def test_attend3_kernels_match_plain(dev, B, C, H, W, dtype):
+    q, kp, vp, rel, g = _attn(dev, B, C, H, W)
+    ops = [t.to(dtype) for t in (q, kp, vp)]
+    before = (attend3_fwd.launches, attend3_bwd.launches)
+    out = attend3_fwd(*ops, rel)
+    grads = attend3_bwd(*ops, rel, g.to(dtype))
+    torch.cuda.synchronize()
+    assert (attend3_fwd.launches, attend3_bwd.launches) == tuple(n + 1 for n in before)
+    assert out.dtype == dtype and [t.dtype for t in grads] == [dtype] * 3 + [torch.float32]
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, attend3_reference(q, kp, vp, rel), atol=1e-5, rtol=0)
+        want = _attn_grads(*(t.double() for t in (q, kp, vp, rel, g)))
+        for a, b in zip(grads, want):
+            assert a.shape == b.shape and _rel(a.double(), b) <= 1e-4
+    else:
+        f = [t.float() for t in ops]
+        assert _rel(out.float(), attend3_reference(*f, rel)) <= 1e-2
+        for a, b in zip(grads, _attn_grads(*f, rel, g.to(dtype).float())):
+            assert _rel(a.float(), b) <= 1e-2
+
+
+def test_attend3_backward_is_deterministic_and_autograd_reaches_it(dev):
+    q, kp, vp, rel, g = _attn(dev, 4, 32, 48, 160, seed=2)
+    first, second = attend3_bwd(q, kp, vp, rel, g), attend3_bwd(q, kp, vp, rel, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    leaves = [t.clone().requires_grad_() for t in (q, kp, vp, rel)]
+    attend3(*leaves).backward(g)
+    assert all(torch.equal(t.grad, a) for t, a in zip(leaves, first))
+
+
+def test_attend3_launches_on_the_current_stream_and_refuses(dev):
+    q, kp, vp, rel, _ = _attn(dev, 2, 8, 20, 40)
+    want = attend3_reference(q, kp, vp, rel)
+    before = attend3_fwd.launches
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = attend3(q, kp, vp, rel)
+    side.synchronize()
+    assert attend3_fwd.launches == before + 1
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        attend3(q.transpose(2, 3).contiguous().transpose(2, 3), kp, vp, rel)
+    with pytest.raises(ValueError, match="one device"):
+        attend3(q, kp, vp, rel.cpu())
+    with pytest.raises(TypeError):
+        attend3(q.double(), kp.double(), vp.double(), rel.double())  # no float64 kernel
+    with pytest.raises(TypeError, match="rel"):
+        attend3(q.bfloat16(), kp.bfloat16(), vp.bfloat16(), rel.bfloat16())
+    assert attend3_fwd.launches == before + 1
+
+
+@pytest.mark.parametrize("shared_rel,use_bias", [(False, True), (True, False)])
+def test_attention_conv_kernel_path_matches_the_plain_path(dev, shared_rel, use_bias):
+    """The module on the card through #3/#4 (ring padded with the bias)
+    against its plain path (bias through the zero-padded input) on the CPU:
+    the output and every gradient, 1e-4 of max."""
+    torch.manual_seed(0)
+    mod = AttentionConv(12, 16, 3, use_bias=use_bias, shared_rel=shared_rel)
+    x = torch.randn(2, 12, 13, 37)
+    cpu, card = mod, AttentionConv(12, 16, 3, use_bias=use_bias, shared_rel=shared_rel).to(dev)
+    card.load_state_dict(mod.state_dict())
+    r = torch.randn(2, 16, 13, 37)
+    xs = [x.clone().requires_grad_(), x.to(dev).requires_grad_()]
+    outs = [cpu(xs[0]), card(xs[1], kernel=True)]
+    for o, rr in zip(outs, (r, r.to(dev))):
+        (o * rr).sum().backward()
+    assert _rel(outs[1].cpu(), outs[0].detach()) <= 1e-4
+    assert _rel(xs[1].grad.cpu(), xs[0].grad) <= 1e-4
+    scale = max(p.grad.abs().max() for p in cpu.parameters())  # the key bias's is 0
+    for (name, a), b in zip(card.named_parameters(), cpu.parameters()):
+        assert ((a.grad.cpu() - b.grad).abs().max() / scale).item() <= 1e-4, name

@@ -365,7 +365,7 @@ def test_gru_trainer_overrides_and_refusals(capsys):
     assert tr.state.lr == 1e-4 and tr.state.scheduler_step_size == 0  # constant rate
     with pytest.raises(ValueError, match="use_stereo"):
         train_gru.build_trainer(train_gru.MonodepthOptions().parse(_argv("--use_stereo")))
-    for version, slice_ in (("v9", "slice 4"), ("v7", "slice 5"), ("v5", "slice 5")):
+    for version, slice_ in (("v8", "slice 5"), ("v7", "slice 5"), ("v5", "slice 5")):
         with pytest.raises(NotImplementedError, match=slice_):
             train_gru.build_trainer(
                 train_gru.MonodepthOptions().parse(_argv("--gru_version", version)))

@@ -5,7 +5,8 @@
 on the same weights and synthetic frames, for all three protocols, at
 64x128 in float32 (bound 1e-4 on the disparity). A subprocess with the
 imports of JAX, flax and the JAX package (``ssde_tpu``) blocked shows that
-the port, its mono and GRU training slices included, needs none of them.
+the port, its mono and GRU (v10 and v9) training slices included, needs
+none of them.
 """
 
 import os
@@ -214,6 +215,21 @@ _NO_JAX = textwrap.dedent("""
     trainer = train_gru.build_trainer(opt)
     batch = to_device(next(iter(trainer.train_loader)), "cpu")
     assert float(steps_gru.train_step(trainer.models, trainer.state, batch)["loss"]) > 0
+
+    # GRU v9 (attention fusion): a tiny model through the same entry point,
+    # one sequence step, and its streamed disparity
+    opt = train_gru.MonodepthOptions().parse(
+        ["--gru_version", "v9", "--synthetic_data", "--height", "64", "--width", "128",
+         "--batch_size", "1", "--len_sequence", "2", "--compute_dtype", "float32",
+         "--num_workers", "1", "--no_cuda"])
+    trainer = train_gru.build_trainer(opt)
+    assert type(trainer.models.gru.fusion(0).resConfUnit1).__name__ == "ResidualAttentionUnit"
+    batch = to_device(next(iter(trainer.train_loader)), "cpu")
+    assert float(steps_gru.train_step(trainer.models, trainer.state, batch)["loss"]) > 0
+    opt = Options()
+    opt.gru_version, opt.height, opt.width = "v9", 64, 128
+    disp = build_evaluator(opt, "cpu").predict_scene(scene_frames(64, 128, 2))
+    assert disp[-1].shape == (1, 64, 128) and 0 < disp[-1].min() < disp[-1].max() < 1
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("no-jax ok")
 """)
