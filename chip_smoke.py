@@ -7,10 +7,12 @@ Run from the repo root on a machine with one CUDA card (sm_90a):
 
 Phases, each fatal on failure:
   1. setup   versions, card name and power limit, the CUDA kernels' build
-             (one nvcc per source, in parallel)
-  2. kernel  the hand-written conv3x3 kernel against its plain twin on the
-             card, at every conv shape GRU v10 issues at 640x192 (B=1, 8),
-             both pads, every act, bias on/off, float32 and bfloat16
+             (one nvcc per source, in parallel) and each kernel's ptxas
+             registers, shared memory and spills
+  2. kernel  the hand-written conv3x3 kernels against their plain twin on
+             the card, at every conv shape GRU v10 issues at 640x192 (B=1,
+             8) and ragged ones, both pads, every act, bias on/off, float32
+             (the CUDA-core body) and bfloat16 (the tensor-core body)
   3. slice   GRU v10 / ResNet18 / 640x192 / float32 streaming depth through
              the port's own entry points (build_evaluator, the scene loop
              and the bucketed warm-up loop), seeded random weights; checks
@@ -35,7 +37,8 @@ Phases, each fatal on failure:
  10. gru kernels   the conv3x3 backward (the forward kernel as dx, the
              weight-gradient kernel #2, db) against autograd of the plain
              version at every GRU v10 conv shape at B=8 (640x192), both pads,
-             bias on/off, float32 and bf16, and ragged and 2-pixel-high maps
+             bias on/off, float32 and bf16, and ragged and 2-pixel-high maps;
+             the bf16 dW bit-identical twice at 32->96, 192x640, B=8
  11. gru slice     the GRU trainer built by the port's entry point
              (scripts/train_gru: v10, ResNet18, 640x192, B=8, T=3, bf16,
              synthetic data): one epoch of 4 steps and its val(); finite
@@ -46,8 +49,9 @@ Phases, each fatal on failure:
              gradient; (b) one whole GRU step at B=1, T=2 by phase 8's recipe
  13. gru times     train step ms, frame-samples/s, peak memory, idle share,
              the top device operations; per conv shape the forward, dx and
-             dW kernels beside cuDNN's forward, backward-data and
-             backward-weight
+             dW kernels (float32 and bf16) beside cuDNN's forward,
+             backward-data and backward-weight, their sums per frame-step,
+             TFLOP/s and bounds
  14. attn kernels  the windowed-attention forward (#3) and backward (#4)
              against the plain attend3 and its autograd at every GRU v9
              attention shape at 640x192 (B=1, 8; float32 against float64,
@@ -67,7 +71,9 @@ Phases, each fatal on failure:
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, each with its launches on the main path (for
 attend3_fwd those of phases 15 and 16 together), its time, its plain
-version's, the least
+version's (conv3x3_fwd: float32 serving, and under bf16_b8_* its bf16
+tensor-core body at a B=8 training frame-step; conv3x3_dx and conv3x3_dw
+in bf16), the least
 time the card could take (``bound_ms``: the bytes the function must move
 over 3.35 TB/s or its operations over the peak rate for its type, the
 larger) and a PyTorch library call's time where one computes the same
@@ -252,9 +258,21 @@ def main() -> None:
     print(f"kernel library {lib.path.name}: nvcc {lib.build_seconds:.2f} s, "
           f"load {time.perf_counter() - t0:.2f} s"
           + ("" if lib.build_seconds else " (already built)"))
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    kernel = ""
+    for line in lib.log.splitlines():  # ptxas -v: each kernel's registers, smem, spills
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line.strip()
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas: {kernel}: {line.strip()}")
+    # ptxas reports static shared memory only; the tensor-core conv kernels
+    # ask for theirs at launch (conv3x3_tc.cu launch_fwd, launch_dw_tc): the
+    # 6x66-pixel halo tile at CC + 8 elements a pixel, plus the forward's BN
+    # x (9 CC + 8) weights or dW's (16 MT) x (256 + 8) g tile, bf16
+    halo = lambda cc: 6 * 66 * (cc + 8) * 2  # noqa: E731
+    print("  dynamic shared memory of conv3x3_tc.cu, bytes: " + ", ".join(
+        [f"forward CC={cc} BN={bn} {halo(cc) + bn * (9 * cc + 8) * 2}"
+         for cc in (16, 32) for bn in (8, 32, 64)]
+        + [f"dW MT={mt} {halo(32) + 16 * mt * 264 * 2}" for mt in (2, 4)]))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("TF32 off for cuDNN convs and matmuls: every comparison is in full float32")
@@ -277,10 +295,15 @@ def main() -> None:
     launch_counts = gru_slice(dev)
     gru_card_vs_cpu(dev)
     times = gru_times(dev, card)
+    # the forward's entry carries float32 serving (its ms, plain_ms, ...) and,
+    # beside it, the bf16 tensor-core body at a B=8 frame-step of training
+    kernels["conv3x3_fwd"].update(
+        bf16_source="ssde_tpu_torch/csrc/conv3x3_tc.cu",
+        **{f"bf16_b8_{k}": v for k, v in times.pop("conv3x3_fwd").items()})
     for name, rep in (("conv3x3_dx", "ssde_tpu/ops/pallas/conv3x3.py:79 (as dx at :279, :384)"),
                       ("conv3x3_dw", "ssde_tpu/ops/pallas/conv3x3.py:109")):
         kernels[name] = {"name": name, "route": "cuda",
-                         "source": "ssde_tpu_torch/csrc/conv3x3.cu", "replaces": rep,
+                         "source": "ssde_tpu_torch/csrc/conv3x3_tc.cu", "replaces": rep,
                          "launches": launch_counts[name], "max_abs_err": errs[name],
                          **times[name]}
     errs = attn_kernels(dev)
@@ -318,14 +341,19 @@ def serving(dev, card):
     # ----------------------------------------------- 2. kernel vs plain twin
     convs = slice_convs(VERSION, H, W)
     shapes = sorted({c[1:5] for c in convs}, key=lambda s: (-s[3], s[1]))
+    # ragged: off every tile and channel multiple of both bodies, the heads
+    # and their dx (a conv from 1 channel) off the tile, the 2-pixel minimum
+    ragged = [((5, 17, 37, 45), 2), ((32, 1, 37, 45), 2), ((1, 32, 9, 70), 2),
+              ((192, 64, 5, 72), 1), ((3, 1, 2, 2), 1)]
     g = torch.Generator(device=dev).manual_seed(SEED)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    worst_abs_f32, n_cases = 0.0, 0
+    worst_abs, n_cases = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
     worst_f64 = {"kernel": 0.0, "twin": 0.0}  # f32 cases against float64
-    print(f"kernel vs twin: {len(shapes)} shapes x B(1,8) x pad x act x bias x dtype;"
-          f" bounds rel f32 {TOL_F32}, bf16 {TOL_BF16} (vs f32 twin on bf16-rounded inputs)")
+    print(f"kernel vs twin: {len(shapes)} shapes x B(1,8) + {len(ragged)} ragged x pad x act x "
+          f"bias x dtype; bounds rel f32 {TOL_F32}, bf16 {TOL_BF16} (vs f32 twin on "
+          "bf16-rounded inputs)")
     with torch.inference_mode():
-        for (cin, cout, h, w), B in itertools.product(shapes, (1, 8)):
+        for (cin, cout, h, w), B in list(itertools.product(shapes, (1, 8))) + ragged:
             x = torch.randn(B, cin, h, w, device=dev, generator=g)
             wt = torch.randn(cout, cin, 3, 3, device=dev, generator=g) / (3 * cin ** 0.5)
             bt = torch.randn(cout, device=dev, generator=g) * 0.1
@@ -342,8 +370,8 @@ def serving(dev, card):
                 rel = err / max(ref.abs().max().item(), 1e-12)
                 n_cases += 1
                 worst[dt] = max(worst[dt], rel)
+                worst_abs[dt] = max(worst_abs[dt], err)
                 if dt == torch.float32:
-                    worst_abs_f32 = max(worst_abs_f32, err)
                     ref64 = conv3x3_reference(x.double(), wt.double(),
                                               bt.double() if has_b else None, pad, act)
                     for name, o in (("kernel", out), ("twin", ref)):
@@ -356,7 +384,8 @@ def serving(dev, card):
                     fail(f"kernel disagrees with twin: {cin}->{cout} {h}x{w} B={B} "
                          f"{dt} {pad} {act} bias={has_b}: rel {rel:.3e}")
     print(f"kernel vs twin: {n_cases} cases ok; worst rel f32 {worst[torch.float32]:.3e} "
-          f"(abs {worst_abs_f32:.3e}), bf16 {worst[torch.bfloat16]:.3e}")
+          f"(abs {worst_abs[torch.float32]:.3e}), bf16 {worst[torch.bfloat16]:.3e} (abs "
+          f"{worst_abs[torch.bfloat16]:.3e})")
     print(f"float32 cases against float64: worst abs kernel {worst_f64['kernel']:.3e}, "
           f"twin {worst_f64['twin']:.3e}")
 
@@ -454,9 +483,10 @@ def serving(dev, card):
     conv_kernel = {"name": "conv3x3_fwd", "route": "cuda",
                    "source": "ssde_tpu_torch/csrc/conv3x3.cu",
                    "replaces": "ssde_tpu/ops/pallas/conv3x3.py:79",
-                   "launches": launches, "max_abs_err": worst_abs_f32,
+                   "launches": launches, "max_abs_err": worst_abs[torch.float32],
                    "ms": frame_k, "plain_ms": frame_p, "bound_ms": frame_b,
-                   "bound_by": frame_by, "library_ms": frame_l}
+                   "bound_by": frame_by, "library_ms": frame_l,
+                   "bf16_max_abs_err": worst_abs[torch.bfloat16]}
     del ev, cpu_models, g
     torch.cuda.empty_cache()
     return conv_kernel
@@ -919,7 +949,7 @@ def gru_kernels(dev):
     maps. The float32 cases are also held against a float64 run."""
     import torch
 
-    from ssde_tpu_torch.ops.conv3x3 import PADS
+    from ssde_tpu_torch.ops.conv3x3 import PADS, conv3x3_dw
 
     torch.backends.cudnn.allow_tf32 = False
     shapes = sorted({c[1:7] for c in slice_convs(VERSION, H, W)},
@@ -933,7 +963,7 @@ def gru_kernels(dev):
               (2, 16, 16, 2, 45, "reflect", "none", False)]
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    worst_abs = {"conv3x3_dx": 0.0, "conv3x3_dw": 0.0}
+    worst_abs = {}  # (kernel, dtype) -> worst absolute error
     worst_plain = 0.0  # cuDNN's float32 backward against the float64 one
     print(f"gru kernels: the conv3x3 backward, {len(cases)} cases x (float32, bf16) "
           f"against autograd of the plain version; bounds of each gradient's max: "
@@ -955,9 +985,10 @@ def gru_kernels(dev):
                 if a.dtype != dtype or a.shape != r.shape:
                     fail(f"gru kernels: {name} {a.dtype} {tuple(a.shape)}")
                 rels.append((name, _rel(a.to(r.dtype), r)))
-                if dtype == torch.float32 and name != "db":
-                    key = "conv3x3_dx" if name == "dx" else "conv3x3_dw"
-                    worst_abs[key] = max(worst_abs[key], (a.double() - r).abs().max().item())
+                if name != "db":
+                    key = ("conv3x3_dx" if name == "dx" else "conv3x3_dw", dtype)
+                    worst_abs[key] = max(worst_abs.get(key, 0.0),
+                                         (a.to(r.dtype) - r).abs().max().item())
             if dtype == torch.float32:  # autograd of the plain version in float32, shown
                 plain = _plain_grads(x, wt, bt, g, pad, act)
                 worst_plain = max([worst_plain] + [_rel(a.double(), r) for a, r in
@@ -972,14 +1003,22 @@ def gru_kernels(dev):
         print(f"  {cin:3d}->{cout:<3d} {h}x{w} B={B} {pad:7s} {act:7s} bias={int(has_b)}: "
               + "; ".join(line))
         del x, wt, bt, g
+    # the bf16 weight gradient sums in a fixed order (no atomics): the same
+    # bits twice at a GRU width
+    x = torch.randn(GRU_B, 32, H, W, device=dev, generator=gen).to(torch.bfloat16)
+    g = torch.randn(GRU_B, 96, H, W, device=dev, generator=gen).to(torch.bfloat16)
+    if not torch.equal(conv3x3_dw(x, g, "zero"), conv3x3_dw(x, g, "zero")):
+        fail("gru kernels: the bf16 dW of 32->96 at 192x640, B=8 differs between two runs")
+    print(f"gru kernels: the bf16 dW of 32->96 at {H}x{W}, B={GRU_B} is bit-identical twice")
+    del x, g
     print(f"gru kernels: {2 * len(cases)} cases ok in {time.perf_counter() - t0:.1f} s; worst "
           f"of max: float32 {worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}; "
-          f"float32 worst abs dx {worst_abs['conv3x3_dx']:.3e}, dw "
-          f"{worst_abs['conv3x3_dw']:.3e}; autograd of the plain version in float32 "
-          f"(cuDNN, TF32 off, act' from its own output) against the float64 reference, "
-          f"worst of max: {worst_plain:.3e}")
+          + "; ".join(f"{'float32' if dt == torch.float32 else 'bf16'} worst abs {k[8:]} {v:.3e}"
+                      for (k, dt), v in sorted(worst_abs.items(), key=str))
+          + f"; autograd of the plain version in float32 (cuDNN, TF32 off, act' from its own "
+          f"output) against the float64 reference, worst of max: {worst_plain:.3e}")
     torch.cuda.empty_cache()
-    return worst_abs
+    return {k: v for (k, dt), v in worst_abs.items() if dt == torch.bfloat16}
 
 
 def _gru_counters():
@@ -1520,11 +1559,12 @@ def gru_times(dev, card):
             b_ms = sum(max(r[3] / PEAK_OPS[dname], r[4] / PEAK_BYTES) for r in rows) * 1e3
             by = "operations" if t_ops >= t_bytes else "bytes"
             b32 = sum(max(r[3] / PEAK_OPS["float32"], r[4] / PEAK_BYTES) for r in rows) * 1e3
+            tflops = sum(r[3] for r in rows) / tk / 1e9
             print(f"gru frame-step at B={GRU_B} ({len(convs)} convs), {dname}, {name}: kernel "
-                  f"{tk:.3f} ms, plain {tp:.3f} ms, library {tl:.3f} ms; bound {b_ms:.3f} ms "
-                  f"({by}, {dname} peak) and {b32:.3f} ms at the 67 TFLOP/s float32 "
-                  f"CUDA-core peak [{card}]")
-            if dtype == torch.bfloat16 and name != "fwd":
+                  f"{tk:.3f} ms ({tflops:.1f} TFLOP/s, {tk / tl:.2f}x the library), plain "
+                  f"{tp:.3f} ms, library {tl:.3f} ms; bound {b_ms:.3f} ms ({by}, {dname} "
+                  f"peak) and {b32:.3f} ms at the 67 TFLOP/s float32 CUDA-core peak [{card}]")
+            if dtype == torch.bfloat16:
                 times[f"conv3x3_{name}"] = {"ms": tk, "plain_ms": tp, "bound_ms": b_ms,
                                             "bound_by": by, "library_ms": tl}
     torch.cuda.empty_cache()

@@ -1,33 +1,36 @@
-// Fused 3x3 SAME convolution + bias + activation, NCHW, for Hopper (sm_90a).
+// Fused 3x3 SAME convolution + bias + activation, NCHW, float32, for Hopper
+// (sm_90a): the CUDA-core body. bf16 operands have a body of their own on the
+// tensor cores (conv3x3_tc.cu); ssde_tpu_torch/ops/conv3x3.py picks the body
+// by dtype, one body per dtype, and neither falls back to the other.
 //
 // Replaces ssde_tpu/ops/pallas/conv3x3.py::_fwd_kernel (reached through
 // _conv_rows): the forward conv that the GRU v10 cell, the fusion blocks'
 // ResidualConvUnits and their sigmoid disparity heads run at scales 0 and 1.
 // It computes what that kernel computes -- zero or reflect padding, an
-// optional bias, one of none/relu/elu/sigmoid/tanh, f32 accumulation and the
-// output in the input dtype -- but not the way it computes it: there is no
-// tap-stack im2col, no 128-lane padding and no logical width here.
+// optional bias, one of none/relu/elu/sigmoid/tanh, f32 accumulation -- but
+// not the way it computes it: there is no tap-stack im2col, no 128-lane
+// padding and no logical width here.
 //
 // What bounds it. At the slice's shapes (GRU v10 at 640x192: Cin 32 or 64,
 // Cout 1..192, full and half resolution) the convs are about 45 GFLOP per
 // frame at about 150-200 FLOP per byte of activations read, so on this card
 // they are compute-bound, and this kernel runs them on the CUDA cores in
-// f32 FMAs. Design: each block computes one batch item, a 16x32 output tile
-// and a chunk of CO output channels. It stages an 8-channel input slab with
-// its one-pixel halo in shared memory -- zero or reflect padding is resolved
-// while loading, so the inner loop has no branches -- together with the
-// matching (8 x 9 x CO) weights, and each thread keeps 2 rows x CO
-// accumulators in registers, so one shared-memory read of an input value
-// feeds CO FMAs and one broadcast weight read feeds 2. Bias and activation
-// are fused into the store. Shared memory stays under the 48 KB static
-// limit. An implicit GEMM on the tensor cores (mma.sync, then wgmma) is the
-// step after this one.
+// f32 FMAs (float32 serving at B=1 is within 1.2x of cuDNN). Design: each
+// block computes one batch item, a 16x32 output tile and a chunk of CO
+// output channels. It stages an 8-channel input slab with its one-pixel halo
+// in shared memory -- zero or reflect padding is resolved while loading, so
+// the inner loop has no branches -- together with the matching (8 x 9 x CO)
+// weights, and each thread keeps 2 rows x CO accumulators in registers, so
+// one shared-memory read of an input value feeds CO FMAs and one broadcast
+// weight read feeds 2. Bias and activation are fused into the store. Shared
+// memory stays under the 48 KB static limit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ssde_tpu_torch/ops/build.py); bound with ctypes.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "conv3x3_common.cuh"
 
 namespace {
 
@@ -40,36 +43,10 @@ constexpr int kHaloH = kTileH + 2;
 constexpr int kHaloW = kTileW + 2;
 constexpr int kThreads = kTileW * kThreadRows;
 
-enum Act { kNone = 0, kRelu = 1, kElu = 2, kSigmoid = 3, kTanh = 4 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// Source index of padded coordinate g (g >= -1) on an axis of length n, or -1
-// when the tap reads zero. Reflect: -1 reads 1 and n reads n-2 (n >= 2).
-// Coordinates past n only feed outputs beyond the edge, which are not stored.
-__device__ __forceinline__ int source(int g, int n, bool reflect) {
-  if (g < 0) return reflect ? 1 : -1;
-  if (g < n) return g;
-  return (reflect && g == n) ? n - 2 : -1;
-}
-
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case kRelu: return fmaxf(v, 0.f);
-    case kElu: return v > 0.f ? v : expm1f(v);
-    case kSigmoid: return 1.f / (1.f + expf(-v));
-    case kTanh: return tanhf(v);
-    default: return v;
-  }
-}
-
-template <typename T, int CO>
+template <int CO>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   const T* __restrict__ bias, T* __restrict__ out, int Cin,
+conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ bias, float* __restrict__ out, int Cin,
                    int H, int W, int Cout, int co_chunks, bool reflect, int act) {
   __shared__ float xs[kCinChunk][kHaloH][kHaloW];
   __shared__ __align__(16) float ws[kCinChunk * 9][CO];
@@ -80,7 +57,7 @@ conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int b = blockIdx.z / co_chunks;
   const int co0 = (blockIdx.z % co_chunks) * CO;
   const long plane = (long)H * W;
-  const T* xb = x + (long)b * Cin * plane;
+  const float* xb = x + (long)b * Cin * plane;
 
   float acc[kRowsPerThread][CO];
 #pragma unroll
@@ -98,7 +75,7 @@ conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int gx = source(x0 - 1 + col, W, reflect);
       float v = 0.f;
       if (ci0 + c < Cin && gy >= 0 && gx >= 0)
-        v = to_f32(xb[(ci0 + c) * plane + (long)gy * W + gx]);
+        v = xb[(ci0 + c) * plane + (long)gy * W + gx];
       xs[c][r][col] = v;
     }
     for (int i = tid; i < kCinChunk * 9 * CO; i += kThreads) {
@@ -106,7 +83,7 @@ conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int c = k / 9, tap = k % 9;
       float v = 0.f;
       if (ci0 + c < Cin && co0 + o < Cout)
-        v = to_f32(w[((long)(co0 + o) * Cin + ci0 + c) * 9 + tap]);
+        v = w[((long)(co0 + o) * Cin + ci0 + c) * 9 + tap];
       ws[k][o] = v;
     }
     __syncthreads();
@@ -143,9 +120,8 @@ conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int co = co0 + o;
       if (co >= Cout) continue;
       float v = acc[p][o];
-      if (bias != nullptr) v += to_f32(bias[co]);
-      store(out + ((long)b * Cout + co) * plane + (long)oy * W + ox,
-            activate(v, act));
+      if (bias != nullptr) v += bias[co];
+      out[((long)b * Cout + co) * plane + (long)oy * W + ox] = activate(v, act);
     }
   }
 }
@@ -154,8 +130,8 @@ conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // Weight gradient (kernel #2). Replaces ssde_tpu/ops/pallas/conv3x3.py::
 // _dw_kernel (through _dw_call): dW[co, ci, ky, kx] = sum over b, y, x of
 // g[b, co, y, x] * xpad[b, ci, y + ky - 1, x + kx - 1], zero or reflect
-// padding, float32 or bf16 operands, float32 accumulation and a float32
-// result in torch's (Cout, Cin, 3, 3) layout.
+// padding, float32 operands (bf16: conv3x3_tc.cu), float32 accumulation and
+// a float32 result in torch's (Cout, Cin, 3, 3) layout.
 //
 // What bounds it. At the GRU v10 shapes (B=8, 640x192 and 320x96) it is a
 // product with M = Cout, N = 9 Cin and K = B H W = 983,040 pixels at scale
@@ -173,7 +149,7 @@ conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // row (4 shared loads per 9 FMAs). At the end it writes its partial sums
 // to a (P, Cout, Cin, 9) float32 scratch buffer. Pass 2 adds the P partial
 // sums of each weight in a fixed order. No atomics, so every run gives the
-// same bits. Tensor cores (an implicit GEMM) are the step after this one.
+// same bits.
 // ---------------------------------------------------------------------------
 
 constexpr int kDwTileH = 8;
@@ -185,9 +161,8 @@ constexpr int kDwThreads = kDwCo * kDwCi;  // one (co, ci) pair per thread
 constexpr int kDwHaloH = kDwTileH + 2;
 constexpr int kDwHaloW = kDwTileW + 2;
 
-template <typename T>
 __global__ void __launch_bounds__(kDwThreads)
-conv3x3_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
+conv3x3_dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
                   float* __restrict__ partial, int B, int Cin, int H, int W,
                   int Cout, int ci_chunks, bool reflect) {
   __shared__ float xs[kDwCi][kDwHaloH][kDwHaloW];
@@ -211,8 +186,8 @@ conv3x3_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
     const int b = t / (tiles_y * tiles_x);
     const int y0 = ((t / tiles_x) % tiles_y) * kDwTileH;
     const int x0 = (t % tiles_x) * kDwTileW;
-    const T* xb = x + (long)b * Cin * plane;
-    const T* gb = g + (long)b * Cout * plane;
+    const float* xb = x + (long)b * Cin * plane;
+    const float* gb = g + (long)b * Cout * plane;
     __syncthreads();  // the previous tile's reads are done
     for (int i = tid; i < kDwCi * kDwHaloH * kDwHaloW; i += kDwThreads) {
       const int cc = i / (kDwHaloH * kDwHaloW);
@@ -222,7 +197,7 @@ conv3x3_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
       const int gx = source(x0 - 1 + col, W, reflect);
       float v = 0.f;
       if (ci0 + cc < Cin && gy >= 0 && gx >= 0)
-        v = to_f32(xb[(ci0 + cc) * plane + (long)gy * W + gx]);
+        v = xb[(ci0 + cc) * plane + (long)gy * W + gx];
       xs[cc][r][col] = v;
     }
     for (int i = tid; i < kDwCo * kDwTile; i += kDwThreads) {
@@ -230,7 +205,7 @@ conv3x3_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
       const int y = y0 + r, xx = x0 + col;
       float v = 0.f;  // pixels past the edge and channels past Cout add 0
       if (co0 + oo < Cout && y < H && xx < W)
-        v = to_f32(gb[(co0 + oo) * plane + (long)y * W + xx]);
+        v = gb[(co0 + oo) * plane + (long)y * W + xx];
       gs[oo][r * kDwTileW + col] = v;
     }
     __syncthreads();
@@ -268,90 +243,61 @@ conv3x3_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// dw[i] = sum over p of partial[p][i], p in increasing order.
-__global__ void conv3x3_dw_reduce_kernel(const float* __restrict__ partial,
-                                         float* __restrict__ dw, int n, int P) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int p = 0; p < P; ++p) s += partial[(long)p * n + i];
-  dw[i] = s;
-}
-
-template <typename T>
-void launch_dw(const void* x, const void* g, float* partial, float* dw, int B,
+void launch_dw(const float* x, const float* g, float* partial, float* dw, int B,
                int Cin, int H, int W, int Cout, int P, bool reflect,
                cudaStream_t stream) {
   const int co_chunks = (Cout + kDwCo - 1) / kDwCo;
   const int ci_chunks = (Cin + kDwCi - 1) / kDwCi;
-  conv3x3_dw_kernel<T><<<dim3(co_chunks * ci_chunks, P), kDwThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), partial, B, Cin, H, W,
-      Cout, ci_chunks, reflect);
+  conv3x3_dw_kernel<<<dim3(co_chunks * ci_chunks, P), kDwThreads, 0, stream>>>(
+      x, g, partial, B, Cin, H, W, Cout, ci_chunks, reflect);
   const int n = Cout * Cin * 9;
   conv3x3_dw_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(partial, dw, n, P);
 }
 
-template <typename T>
-void launch(const void* x, const void* w, const void* b, void* out, int B,
+void launch(const float* x, const float* w, const float* b, float* out, int B,
             int Cin, int H, int W, int Cout, bool reflect, int act,
             cudaStream_t stream) {
   const dim3 block(kTileW, kThreadRows);
   const int gx = (W + kTileW - 1) / kTileW, gy = (H + kTileH - 1) / kTileH;
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  const T* bt = static_cast<const T*>(b);
-  T* ot = static_cast<T*>(out);
   if (Cout >= 16) {
     const int chunks = (Cout + 15) / 16;
-    conv3x3_fwd_kernel<T, 16><<<dim3(gx, gy, B * chunks), block, 0, stream>>>(
-        xt, wt, bt, ot, Cin, H, W, Cout, chunks, reflect, act);
+    conv3x3_fwd_kernel<16><<<dim3(gx, gy, B * chunks), block, 0, stream>>>(
+        x, w, b, out, Cin, H, W, Cout, chunks, reflect, act);
   } else {
-    conv3x3_fwd_kernel<T, 1><<<dim3(gx, gy, B * Cout), block, 0, stream>>>(
-        xt, wt, bt, ot, Cin, H, W, Cout, Cout, reflect, act);
+    conv3x3_fwd_kernel<1><<<dim3(gx, gy, B * Cout), block, 0, stream>>>(
+        x, w, b, out, Cin, H, W, Cout, Cout, reflect, act);
   }
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. reflect: 0 zero pad, 1 reflect pad.
+// float32 x, w, b and out. reflect: 0 zero pad, 1 reflect pad.
 // act: 0 none, 1 relu, 2 elu, 3 sigmoid, 4 tanh. b may be null.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int ssde_conv3x3_fwd(const void* x, const void* w, const void* b,
                                 void* out, int B, int Cin, int H, int W,
-                                int Cout, int dtype, int reflect, int act,
-                                void* stream) {
+                                int Cout, int reflect, int act, void* stream) {
   if (act < kNone || act > kTanh || B <= 0 || Cin <= 0 || Cout <= 0 ||
       H <= 0 || W <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    launch<float>(x, w, b, out, B, Cin, H, W, Cout, reflect != 0, act, s);
-  else if (dtype == 1)
-    launch<__nv_bfloat16>(x, w, b, out, B, Cin, H, W, Cout, reflect != 0, act, s);
-  else
-    return (int)cudaErrorInvalidValue;
+  launch(static_cast<const float*>(x), static_cast<const float*>(w),
+         static_cast<const float*>(b), static_cast<float*>(out), B, Cin, H, W,
+         Cout, reflect != 0, act, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
-// Weight gradient: x (B, Cin, H, W) and g (B, Cout, H, W) of one dtype (0
-// float32, 1 bfloat16); partial is float32 scratch of P * Cout * Cin * 9,
-// dw the float32 (Cout, Cin, 3, 3) result. 1 <= P <= 65535.
+// Weight gradient: float32 x (B, Cin, H, W) and g (B, Cout, H, W); partial
+// is float32 scratch of P * Cout * Cin * 9, dw the float32 (Cout, Cin, 3, 3)
+// result. 1 <= P <= 65535.
 // Returns cudaGetLastError() after both launches (0 on success).
 extern "C" int ssde_conv3x3_dw(const void* x, const void* g, void* partial,
                                void* dw, int B, int Cin, int H, int W,
-                               int Cout, int P, int dtype, int reflect,
-                               void* stream) {
+                               int Cout, int P, int reflect, void* stream) {
   if (B <= 0 || Cin <= 0 || Cout <= 0 || H <= 0 || W <= 0 || P <= 0 ||
       P > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pt = static_cast<float*>(partial);
-  float* dt = static_cast<float*>(dw);
-  if (dtype == 0)
-    launch_dw<float>(x, g, pt, dt, B, Cin, H, W, Cout, P, reflect != 0, s);
-  else if (dtype == 1)
-    launch_dw<__nv_bfloat16>(x, g, pt, dt, B, Cin, H, W, Cout, P, reflect != 0, s);
-  else
-    return (int)cudaErrorInvalidValue;
+  launch_dw(static_cast<const float*>(x), static_cast<const float*>(g),
+            static_cast<float*>(partial), static_cast<float*>(dw), B, Cin, H, W,
+            Cout, P, reflect != 0, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

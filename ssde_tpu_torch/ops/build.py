@@ -26,8 +26,9 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCES = tuple(PACKAGE_DIR / "csrc" / name for name in
-                ("conv3x3.cu", "warp_family.cu", "photometric.cu",
+                ("conv3x3.cu", "conv3x3_tc.cu", "warp_family.cu", "photometric.cu",
                  "attention_win.cu"))
+HEADERS = tuple(PACKAGE_DIR / "csrc" / name for name in ("conv3x3_common.cuh",))
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "ssde_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -36,10 +37,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every entry point after its pointer/int arguments: the
 # last argument is always the CUDA stream, the return value a cudaError_t
 SIGNATURES = {
-    # x, w, b, out, B, Cin, H, W, Cout, dtype, reflect, act
-    "ssde_conv3x3_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
-    # x, g, partial, dw, B, Cin, H, W, Cout, P, dtype, reflect
-    "ssde_conv3x3_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
+    # float32: x, w, b, out, B, Cin, H, W, Cout, reflect, act
+    "ssde_conv3x3_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
+    # float32: x, g, partial, dw, B, Cin, H, W, Cout, P, reflect
+    "ssde_conv3x3_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
+    # bf16: x, wp, b, out, B, Cin, H, W, Cout, cin_pad, cc, bn, reflect, act
+    "ssde_conv3x3_fwd_bf16": [_P] * 4 + [_I] * 10,
+    # bf16: x, g, partial, dw, B, Cin, H, W, Cout, P, tile_m, reflect
+    "ssde_conv3x3_dw_bf16": [_P] * 4 + [_I] * 8,
     # img, grids, out, rdx, rdy, S, B, C, H, W, Ho, Wo
     "ssde_warp_family_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
     # pred, targ, out, G, B, C, H, W
@@ -80,7 +85,7 @@ def find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -8,13 +8,18 @@ which run that same kernel as dx and ``_dw_kernel`` as dW. Layout is NCHW
 at true width; the TPU kernel's planar layout, 128-lane padding and logical
 width ``wl`` are lane-layout workarounds with no counterpart here.
 
-:func:`conv3x3` launches ``ssde_tpu_torch/csrc/conv3x3.cu`` for CUDA tensors
-and raises on anything that kernel does not take; when an input requires
-grad it goes through an autograd Function whose backward launches the same
-forward kernel as dx (:func:`conv3x3_dx`) and the weight-gradient kernel
+Each dtype has one body of each kernel: float32 runs the CUDA-core kernels
+of ``ssde_tpu_torch/csrc/conv3x3.cu``, bf16 the tensor-core implicit GEMMs
+of ``csrc/conv3x3_tc.cu``, which read the weights packed by
+:func:`pack_weights`. :func:`conv3x3` launches them for CUDA tensors and
+raises on anything they do not take; when an input requires grad it goes
+through an autograd Function whose backward launches the same forward
+kernel as dx (:func:`conv3x3_dx`) and the weight-gradient kernel
 (:func:`conv3x3_dw`). Only tensors that lie on the CPU go to
 :func:`conv3x3_reference`, under ordinary autograd: its autograd is the
-plain version of both backward kernels.
+plain version of both backward kernels. :func:`conv3x3_igemm_reference` is
+the plain version of the bf16 forward's own arithmetic: the packed weights
+against an im2col in the kernel's K order.
 """
 
 from __future__ import annotations
@@ -29,9 +34,14 @@ from .image import reflect_pad_2d
 
 PADS = ("zero", "reflect")
 ACTS = ("none", "relu", "elu", "sigmoid", "tanh")  # codes 0..4 in the kernel
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# weight-gradient blocks per SM to aim for when splitting the pixel sum
-_DW_BLOCKS_PER_SM = 4
+_DTYPES = (torch.float32, torch.bfloat16)
+# weight-gradient blocks per SM to aim for when splitting the pixel sum: the
+# float32 kernel's, and the bf16 kernels' by output channels per block
+# (dw_tile_m): 64-row blocks take 255 registers a thread, so 2 fit an SM,
+# 32-row ones 168 (3 fit), the Cout = 1 path 80; of 2, 3 and 4 a sweep on an
+# H100 found these fastest
+_DW_BLOCKS_PER_SM = {torch.float32: 4, 64: 2, 32: 3, 1: 4}
+_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
 
 
 def activation(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -82,19 +92,73 @@ def _check_args(x, w, b, pad, act):
         raise ValueError("conv3x3: x, w and b must be contiguous")
     if min(B, Cin, H, W) < 1 or (pad == "reflect" and min(H, W) < 2):
         raise ValueError(f"conv3x3: unsupported shape {tuple(x.shape)} for {pad} pad")
-    for cout in (w.shape[0], Cin):  # the forward, and the backward's dx
-        cout_blocks = -(-cout // 16) if cout >= 16 else cout
-        if B * cout_blocks > 65535:
-            raise ValueError("conv3x3: batch x output-channel blocks exceed the grid")
+    # the forward, and the backward's dx (a conv from Cout to Cin channels)
+    for cin, cout in ((Cin, w.shape[0]), (w.shape[0], Cin)):
+        if x.dtype == torch.bfloat16:
+            blocks, rows = -(-cout // fwd_tiles(cin, cout)[1]), -(-H // 4)
+        else:
+            blocks, rows = (-(-cout // 16) if cout >= 16 else cout), -(-H // 16)
+        if B * blocks > _GRID_YZ or rows > _GRID_YZ:
+            raise ValueError("conv3x3: batch x output-channel blocks or row tiles "
+                             "exceed the grid")
+
+
+def fwd_tiles(cin: int, cout: int) -> tuple:
+    """(CC, BN) of the bf16 forward kernel for a conv from ``cin`` to
+    ``cout`` channels: input channels staged per step (16 or 32; K steps
+    are 16 deep) and output channels per block (8, 32 or 64; n8 MMA
+    fragments). 96 takes 3 blocks of 32, not 2 of 64 with a fourth empty."""
+    cc = 16 if cin <= 16 else 32
+    if cout <= 8:
+        return cc, 8
+    return cc, (32 if cout <= 32 or cout % 64 else 64)
+
+
+def pack_weights(w: torch.Tensor, cc: int, bn: int) -> torch.Tensor:
+    """The bf16 forward's B operand: (Cout, Cin, 3, 3) weights as (N_pad, 9,
+    Cin_pad), tap-major and ci-minor (K = tap * Cin_pad + ci, tap = 3 ky +
+    kx), zero-filled up to multiples of ``bn`` output and ``cc`` input
+    channels, so that the kernel reads whole 16-byte rows and masks only
+    its stores."""
+    cout, cin = w.shape[:2]
+    wp = w.new_zeros(-(-cout // bn) * bn, 9, -(-cin // cc) * cc)
+    wp[:cout, :, :cin] = w.reshape(cout, cin, 9).transpose(1, 2)
+    return wp
+
+
+def conv3x3_igemm_reference(x: torch.Tensor, wp: torch.Tensor, cout: int,
+                            b: Optional[torch.Tensor] = None, pad: str = "zero",
+                            act: str = "none") -> torch.Tensor:
+    """Plain implicit GEMM: the packed weights ``wp`` (:func:`pack_weights`)
+    against the im2col of ``x`` (F.unfold of the padded input), reordered
+    to the kernel's K order (tap-major, ci-minor), then bias and act; the
+    first ``cout`` of wp's rows are the output."""
+    if pad not in PADS:
+        raise ValueError(f"unknown pad {pad!r}; expected one of {PADS}")
+    B, cin, H, W = x.shape
+    n_pad, _, cin_pad = wp.shape
+    xp = reflect_pad_2d(x) if pad == "reflect" else F.pad(x, (1, 1, 1, 1))
+    cols = F.unfold(F.pad(xp, (0, 0, 0, 0, 0, cin_pad - cin)), 3)  # K = ci * 9 + tap
+    cols = cols.view(B, cin_pad, 9, H * W).transpose(1, 2).reshape(B, 9 * cin_pad, H * W)
+    out = (wp.reshape(n_pad, 9 * cin_pad) @ cols)[:, :cout].view(B, cout, H, W)
+    if b is not None:
+        out = out + b.view(1, cout, 1, 1)
+    return activation(out, act)
 
 
 def _launch_fwd(x, w, b, pad, act):
     B, Cin, H, W = x.shape
     Cout = w.shape[0]
     out = torch.empty((B, Cout, H, W), dtype=x.dtype, device=x.device)
-    launch("ssde_conv3x3_fwd", x.device, x.data_ptr(), w.data_ptr(),
-           None if b is None else b.data_ptr(), out.data_ptr(), B, Cin, H, W,
-           Cout, _DTYPES[x.dtype], int(pad == "reflect"), ACTS.index(act))
+    bias, flags = None if b is None else b.data_ptr(), (int(pad == "reflect"), ACTS.index(act))
+    if x.dtype == torch.bfloat16:
+        cc, bn = fwd_tiles(Cin, Cout)
+        wp = pack_weights(w, cc, bn)
+        launch("ssde_conv3x3_fwd_bf16", x.device, x.data_ptr(), wp.data_ptr(), bias,
+               out.data_ptr(), B, Cin, H, W, Cout, wp.shape[2], cc, bn, *flags)
+    else:
+        launch("ssde_conv3x3_fwd", x.device, x.data_ptr(), w.data_ptr(), bias,
+               out.data_ptr(), B, Cin, H, W, Cout, *flags)
     return out
 
 
@@ -135,19 +199,34 @@ def conv3x3_dw_reference(x: torch.Tensor, g: torch.Tensor, pad: str = "zero") ->
         return torch.autograd.grad(out, w, g.to(dt))[0]
 
 
-def dw_partitions(B: int, H: int, W: int, Cin: int, Cout: int, sms: int) -> int:
-    """P, the number of pixel partitions of the weight-gradient kernel: enough
-    blocks for ``_DW_BLOCKS_PER_SM`` per SM, at most one per 8x32 tile."""
-    tiles = B * -(-H // 8) * -(-W // 32)
-    chunks = -(-Cout // 16) * -(-Cin // 16)
-    return max(1, min(tiles, -(-_DW_BLOCKS_PER_SM * sms // chunks), 65535))
+def dw_tile_m(cout: int) -> int:
+    """Output channels per block of the bf16 weight gradient: 1 for the
+    Cout = 1 heads (their CUDA-core path), else 32 or 64 (m16 MMA
+    fragments); 96 takes 3 blocks of 32, not 2 of 64 with a fourth empty."""
+    return 1 if cout == 1 else (64 if cout % 64 == 0 else 32)
+
+
+def dw_partitions(B: int, H: int, W: int, Cin: int, Cout: int, sms: int,
+                  dtype: torch.dtype = torch.bfloat16) -> int:
+    """P, the number of pixel partitions of the weight-gradient kernel of
+    ``dtype``: enough blocks for ``_DW_BLOCKS_PER_SM`` per SM, at most one
+    per pixel tile. The float32 kernel's blocks take 16x16 channels and
+    8x32 tiles, the bf16 kernels' :func:`dw_tile_m` x 32 channels and 4x64
+    tiles."""
+    if dtype == torch.bfloat16:
+        tiles, per_sm = B * -(-H // 4) * -(-W // 64), _DW_BLOCKS_PER_SM[dw_tile_m(Cout)]
+        chunks = -(-Cout // dw_tile_m(Cout)) * -(-Cin // 32)
+    else:
+        tiles, per_sm = B * -(-H // 8) * -(-W // 32), _DW_BLOCKS_PER_SM[dtype]
+        chunks = -(-Cout // 16) * -(-Cin // 16)
+    return max(1, min(tiles, -(-per_sm * sms // chunks), _GRID_YZ))
 
 
 def conv3x3_dw(x: torch.Tensor, g: torch.Tensor, pad: str = "zero") -> torch.Tensor:
     """Weight gradient (Cout, Cin, 3, 3) float32 of the 3x3 SAME conv of
     ``x`` (B, Cin, H, W) under ``pad``, for the output gradient ``g``
-    (B, Cout, H, W) of x's dtype. On CUDA kernel #2 (with its reduction
-    pass), on the CPU its plain version."""
+    (B, Cout, H, W) of x's dtype. On CUDA kernel #2 of x's dtype (with its
+    reduction pass), on the CPU its plain version."""
     if pad not in PADS:
         raise ValueError(f"unknown pad {pad!r}; expected one of {PADS}")
     if x.dim() != 4 or g.dim() != 4 or g.shape[0] != x.shape[0] or g.shape[2:] != x.shape[2:]:
@@ -164,11 +243,16 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor, pad: str = "zero") -> torch.Ten
     if pad == "reflect" and min(H, W) < 2:
         raise ValueError(f"conv3x3_dw: unsupported shape {tuple(x.shape)} for reflect pad")
     P = dw_partitions(B, H, W, Cin, Cout,
-                      torch.cuda.get_device_properties(x.device).multi_processor_count)
+                      torch.cuda.get_device_properties(x.device).multi_processor_count,
+                      x.dtype)
     partial = torch.empty((P, Cout, Cin, 3, 3), dtype=torch.float32, device=x.device)
     dw = torch.empty((Cout, Cin, 3, 3), dtype=torch.float32, device=x.device)
-    launch("ssde_conv3x3_dw", x.device, x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-           dw.data_ptr(), B, Cin, H, W, Cout, P, _DTYPES[x.dtype], int(pad == "reflect"))
+    args = (x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(), B, Cin, H, W,
+            Cout, P)
+    if x.dtype == torch.bfloat16:
+        launch("ssde_conv3x3_dw_bf16", x.device, *args, dw_tile_m(Cout), int(pad == "reflect"))
+    else:
+        launch("ssde_conv3x3_dw", x.device, *args, int(pad == "reflect"))
     conv3x3_dw.launches += 1
     return dw
 

@@ -115,8 +115,20 @@ def test_backward_assembly_keeps_the_input_dtype():
 
 
 def test_dw_partitions():
-    # GRU v10 scale 0 at B=8 (640x192): the cell's x conv 32 -> 96 has 6 x 2
-    # channel blocks; 4 blocks per SM on 132 SMs
-    assert dw_partitions(8, 192, 640, 32, 96, 132) == 44
-    assert dw_partitions(1, 8, 32, 16, 16, 132) == 1  # never more than the tiles
-    assert dw_partitions(8, 96, 320, 64, 1, 132) == 132
+    # bf16 (the tensor-core kernels): GRU v10 scale 0 at B=8 (640x192), the
+    # cell's x conv 32 -> 96 has 3 x 1 channel blocks of 32 x 32, 3 blocks per
+    # SM on 132 SMs
+    assert dw_partitions(8, 192, 640, 32, 96, 132) == 132
+    assert dw_partitions(1, 4, 64, 16, 16, 132) == 1  # never more than the 4x64 tiles
+    assert dw_partitions(1, 8, 64, 16, 16, 132) == 2
+    # the scale-1 head (its CUDA-core path): 2 blocks of 32 input channels, 4
+    # blocks per SM
+    assert dw_partitions(8, 96, 320, 64, 1, 132) == 264
+    # 64 -> 192: 3 x 2 blocks of 64 x 32 channels, 2 blocks per SM
+    assert dw_partitions(8, 96, 320, 64, 192, 132) == 44
+    # float32 (the CUDA-core kernel): 6 x 2 blocks of 16 x 16 channels, 8x32
+    # tiles, 4 blocks per SM
+    f32 = torch.float32
+    assert dw_partitions(8, 192, 640, 32, 96, 132, f32) == 44
+    assert dw_partitions(1, 8, 32, 16, 16, 132, f32) == 1
+    assert dw_partitions(8, 96, 320, 64, 1, 132, f32) == 132

@@ -9,12 +9,14 @@ import no JAX and run on the card with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 (``--noconftest`` because the suite's conftest imports JAX.) chip_smoke.py
-checks the kernel at the slice's 640x192 shapes, which its 32x16 output
-tile divides evenly; the shapes here are the ragged ones: widths and
-heights the tile does not divide, channel counts off the 8-channel input
-stage and the 16-channel output chunk, and reflect padding at its 2-pixel
-minimum. Bounds as in chip_smoke.py: float32 1e-4 relative to max|ref|,
-bfloat16 1e-2 against the float32 twin on the same bf16-rounded inputs.
+checks the kernels at the slice's 640x192 shapes; the shapes here are the
+ragged ones and the edges of each body's tiling: widths and heights that
+neither the float32 body's 16x32 tile nor the bf16 body's 4x64 tile
+divides, channel counts off their input stages (8; 16 or 32), output
+chunks (16; 8, 32 or 64) and MMA multiples, reflect padding at its 2-pixel
+minimum, the Cout = 1 heads and the 1-channel convs of their dx (K = 9).
+Bounds as in chip_smoke.py: float32 1e-4 relative to max|ref|, bfloat16
+1e-2 against the float32 twin on the same bf16-rounded inputs.
 """
 
 import itertools
@@ -25,8 +27,8 @@ import torch
 from ssde_tpu_torch.models.attention import AttentionConv
 from ssde_tpu_torch.ops.attention_win import (attend3, attend3_bwd, attend3_fwd,
                                               attend3_reference)
-from ssde_tpu_torch.ops.conv3x3 import (ACTS, act_grad, conv3x3, conv3x3_dw, conv3x3_dx,
-                                        conv3x3_reference)
+from ssde_tpu_torch.ops.conv3x3 import (ACTS, act_grad, conv3x3, conv3x3_dw,
+                                        conv3x3_dw_reference, conv3x3_dx, conv3x3_reference)
 from ssde_tpu_torch.ops.photometric import (photometric_bwd, photometric_bwd_reference,
                                             photometric_fwd, photometric_reference)
 from ssde_tpu_torch.ops.warp import warp_family_reference
@@ -63,6 +65,11 @@ def _inputs(dev, B, cin, cout, h, w, seed=0):
     (1, 32, 96, 16, 128),   # scale-0 x-conv widths at test resolution
     (2, 64, 192, 9, 64),    # scale-1 x-conv widths, ragged rows
     (3, 8, 16, 33, 31),
+    (2, 32, 1, 12, 136),    # the scale-0 head, W % 64 != 0
+    (1, 64, 1, 9, 80),      # the scale-1 head
+    (2, 1, 32, 6, 72),      # the scale-0 head's dx: a conv from 1 channel (K = 9)
+    (1, 1, 64, 5, 40),      # the scale-1 head's dx
+    (1, 32, 192, 5, 64),    # N = 192 from 32 channels: 3 blocks of 64
 ])
 def test_kernel_matches_twin(dev, B, cin, cout, h, w, pad, dtype):
     x, wt, b = _inputs(dev, B, cin, cout, h, w)
@@ -124,7 +131,10 @@ def test_cuda_inputs_raise_instead_of_falling_back(dev):
     (1, 3, 1, 2, 2),        # reflect minimum; dx of a 1-channel output
     (2, 5, 17, 7, 37),      # nothing divides the tiles or the channel blocks
     (2, 32, 1, 16, 40),     # the sigmoid head: dx from 1 channel to 32
+    (1, 64, 1, 9, 72),      # the scale-1 head: dx from 1 channel to 64
     (1, 64, 128, 9, 64),
+    (1, 32, 96, 6, 128),    # 96 = 3 blocks of 32 in dW and the forward
+    (1, 192, 64, 5, 64),    # a conv from 192 channels: dx to 192, 6 input chunks
 ])
 def test_backward_kernels_match_autograd(dev, B, cin, cout, h, w, pad, act, dtype):
     x, wt, b = _inputs(dev, B, cin, cout, h, w, seed=3)
@@ -150,12 +160,27 @@ def test_backward_kernels_match_autograd(dev, B, cin, cout, h, w, pad, act, dtyp
         assert rel <= TOL[dtype], (act, rel)
 
 
-def test_weight_gradient_is_deterministic(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weight_gradient_is_deterministic(dev, dtype):
     x, _, _ = _inputs(dev, 8, 32, 96, 96, 320, seed=4)
-    g = torch.randn(8, 96, 96, 320, device=dev)
+    x, g = x.to(dtype), torch.randn(8, 96, 96, 320, device=dev).to(dtype)
     first = conv3x3_dw(x, g, "zero")
     assert torch.equal(first, conv3x3_dw(x, g, "zero"))
     assert first.dtype == torch.float32 and first.shape == (96, 32, 3, 3)
+
+
+@pytest.mark.parametrize("cout", [1, 17])
+def test_bf16_weight_gradient_reads_an_unaligned_g(dev, cout):
+    """g with a storage offset of one element is not 16-byte aligned: the
+    bf16 kernels stage it without cp.async and agree with the aligned copy."""
+    x, _, _ = _inputs(dev, 2, 32, cout, 9, 64, seed=5)
+    flat = torch.randn(2 * cout * 9 * 64 + 1, device=dev).to(torch.bfloat16)
+    g = flat[1:].view(2, cout, 9, 64)
+    assert g.data_ptr() % 16 != 0
+    got = conv3x3_dw(x.to(torch.bfloat16), g, "reflect")
+    assert torch.equal(got, conv3x3_dw(x.to(torch.bfloat16), g.clone(), "reflect"))
+    want = conv3x3_dw_reference(x.to(torch.bfloat16).float(), g.float(), "reflect")
+    assert _rel(got, want) <= 1e-5
 
 
 # ------------------------------------------------ family warp and photometric
