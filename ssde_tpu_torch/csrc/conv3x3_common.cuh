@@ -1,5 +1,5 @@
-// Pieces shared by the two bodies of the 3x3 SAME conv: the CUDA-core
-// float32 kernels (conv3x3.cu) and the tensor-core bf16 kernels
+// Pieces shared by the two bodies of the 3x3 SAME conv, both on the tensor
+// cores: the float32 (3xTF32) kernels (conv3x3_tf32.cu) and the bf16 kernels
 // (conv3x3_tc.cu). Each source gets its own internal copy.
 
 #pragma once

@@ -1,8 +1,8 @@
 // The 3x3 SAME conv for bf16 operands on the tensor cores, for Hopper
 // (sm_90a): the forward (kernel #1, which also runs as dx) and the weight
 // gradient (kernel #2), NCHW, as implicit GEMMs with mma.sync
-// m16n8k16 (bf16 x bf16 -> f32). float32 operands have their own CUDA-core
-// body (conv3x3.cu); ssde_tpu_torch/ops/conv3x3.py picks the body by dtype,
+// m16n8k16 (bf16 x bf16 -> f32). float32 operands have their own body
+// (conv3x3_tf32.cu); ssde_tpu_torch/ops/conv3x3.py picks the body by dtype,
 // one body per dtype, and neither falls back to the other.
 //
 // Replaces ssde_tpu/ops/pallas/conv3x3.py::_fwd_kernel (through _conv_rows;
@@ -14,7 +14,7 @@
 // or 64, Cout 1..192) a frame-step's 16 convs are 363 GFLOP, 0.37 ms of
 // tensor-core time at 989 TFLOP/s, and move 1.8 GB of bf16 activations,
 // 0.53 ms at 3.35 TB/s (a 32->32 conv at scale 0 reads and writes 126 MB):
-// bytes bound them, by a little. The CUDA-core body ran them at 20-23
+// bytes bound them, by a little. A CUDA-core body ran them at 20-23
 // TFLOP/s (f32 FMAs on bf16 widened in shared memory); on the tensor cores
 // the work that is left is staging: the tap stack is never written out, and
 // each block reads its input tile once per Cin chunk.

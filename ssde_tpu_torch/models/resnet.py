@@ -9,6 +9,7 @@ so the keys are ``encoder.conv1.weight``, ``encoder.layer1.0.bn1.running_mean``,
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List
 
@@ -39,14 +40,23 @@ class BatchNorm2d(nn.BatchNorm2d):
     corrected by hand, which needs the old running variance only (C values)
     and no second pass over the activations. Parameters, buffers and
     ``state_dict`` keys are torch's.
+
+    While ``stats_frozen`` (:func:`running_stats_frozen`) it normalises as in
+    training but updates nothing: the forward that a checkpointed region
+    (``torch.utils.checkpoint``) runs again in the backward must not move the
+    statistics a second time.
     """
 
     def __init__(self, num_features: int, device=None):
         super().__init__(num_features, eps=1e-5, momentum=0.1, device=device)
+        self.stats_frozen = False
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.stats_frozen:  # the same kernel on copies of the statistics
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, self.momentum, self.eps)
         # torch's update goes to a copy (autograd may keep it for the
         # backward); torch: new = 0.9 old + 0.1 var * n / (n - 1),
         # flax: 0.9 old + 0.1 var
@@ -58,6 +68,20 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_(new_var - (new_var - 0.9 * self.running_var) / n)
             self.num_batches_tracked.add_(1)
         return out
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module):
+    """Freeze the running statistics of every :class:`BatchNorm2d` in
+    ``module`` for the duration (the recompute of a checkpointed forward)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.stats_frozen = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.stats_frozen = False
 
 
 def _bn(c, device):

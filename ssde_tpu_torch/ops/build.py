@@ -26,7 +26,7 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCES = tuple(PACKAGE_DIR / "csrc" / name for name in
-                ("conv3x3.cu", "conv3x3_tc.cu", "warp_family.cu", "photometric.cu",
+                ("conv3x3_tf32.cu", "conv3x3_tc.cu", "warp_family.cu", "photometric.cu",
                  "attention_win.cu"))
 HEADERS = tuple(PACKAGE_DIR / "csrc" / name for name in ("conv3x3_common.cuh",))
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "ssde_tpu_torch"
@@ -37,10 +37,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every entry point after its pointer/int arguments: the
 # last argument is always the CUDA stream, the return value a cudaError_t
 SIGNATURES = {
-    # float32: x, w, b, out, B, Cin, H, W, Cout, reflect, act
-    "ssde_conv3x3_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
-    # float32: x, g, partial, dw, B, Cin, H, W, Cout, P, reflect
-    "ssde_conv3x3_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
+    # float32 (3xTF32): x, wp, b, out, B, Cin, H, W, Cout, cin_pad, cc, bn, reflect, act
+    "ssde_conv3x3_fwd_tf32": [_P] * 4 + [_I] * 10,
+    # float32 (3xTF32): x, g, partial, dw, B, Cin, H, W, Cout, P, tile_m, reflect
+    "ssde_conv3x3_dw_tf32": [_P] * 4 + [_I] * 8,
     # bf16: x, wp, b, out, B, Cin, H, W, Cout, cin_pad, cc, bn, reflect, act
     "ssde_conv3x3_fwd_bf16": [_P] * 4 + [_I] * 10,
     # bf16: x, g, partial, dw, B, Cin, H, W, Cout, P, tile_m, reflect

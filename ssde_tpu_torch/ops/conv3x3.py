@@ -8,10 +8,13 @@ which run that same kernel as dx and ``_dw_kernel`` as dW. Layout is NCHW
 at true width; the TPU kernel's planar layout, 128-lane padding and logical
 width ``wl`` are lane-layout workarounds with no counterpart here.
 
-Each dtype has one body of each kernel: float32 runs the CUDA-core kernels
-of ``ssde_tpu_torch/csrc/conv3x3.cu``, bf16 the tensor-core implicit GEMMs
-of ``csrc/conv3x3_tc.cu``, which read the weights packed by
-:func:`pack_weights`. :func:`conv3x3` launches them for CUDA tensors and
+Each dtype has one body of each kernel, both implicit GEMMs on the tensor
+cores: float32 runs the 3xTF32 kernels of ``ssde_tpu_torch/csrc/conv3x3_tf32.cu``
+(each operand split into tf32 hi + lo, three products per float32 one),
+bf16 those of ``csrc/conv3x3_tc.cu``. The forwards read the weights packed
+by :func:`pack_weights` (float32: split into hi and lo planes), once per
+weight tensor and version (:func:`packed_weights`). :func:`conv3x3`
+launches them for CUDA tensors and
 raises on anything they do not take; when an input requires grad it goes
 through an autograd Function whose backward launches the same forward
 kernel as dx (:func:`conv3x3_dx`) and the weight-gradient kernel
@@ -19,7 +22,9 @@ kernel as dx (:func:`conv3x3_dx`) and the weight-gradient kernel
 :func:`conv3x3_reference`, under ordinary autograd: its autograd is the
 plain version of both backward kernels. :func:`conv3x3_igemm_reference` is
 the plain version of the bf16 forward's own arithmetic: the packed weights
-against an im2col in the kernel's K order.
+against an im2col in the kernel's K order; :func:`conv3x3_tf32x3_reference`
+that of the float32 forward: three such products of the split operands
+(:func:`tf32_split`).
 """
 
 from __future__ import annotations
@@ -35,12 +40,14 @@ from .image import reflect_pad_2d
 PADS = ("zero", "reflect")
 ACTS = ("none", "relu", "elu", "sigmoid", "tanh")  # codes 0..4 in the kernel
 _DTYPES = (torch.float32, torch.bfloat16)
-# weight-gradient blocks per SM to aim for when splitting the pixel sum: the
-# float32 kernel's, and the bf16 kernels' by output channels per block
-# (dw_tile_m): 64-row blocks take 255 registers a thread, so 2 fit an SM,
-# 32-row ones 168 (3 fit), the Cout = 1 path 80; of 2, 3 and 4 a sweep on an
-# H100 found these fastest
-_DW_BLOCKS_PER_SM = {torch.float32: 4, 64: 2, 32: 3, 1: 4}
+# weight-gradient blocks per SM to aim for when splitting the pixel sum, by
+# (dtype, output channels per block) (dw_tile_m). bf16: 64-row blocks take
+# 255 registers a thread, so 2 fit an SM, 32-row ones 168 (3 fit), the
+# Cout = 1 path 80; of 2, 3 and 4 a sweep on an H100 found these fastest.
+# float32: the 32-row block stages 96.6 KB of shared memory (2 fit an SM),
+# the Cout = 1 path 69 KB (3 fit).
+_DW_BLOCKS_PER_SM = {(torch.bfloat16, 64): 2, (torch.bfloat16, 32): 3, (torch.bfloat16, 1): 4,
+                     (torch.float32, 32): 2, (torch.float32, 1): 3}
 _GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
 
 
@@ -92,22 +99,26 @@ def _check_args(x, w, b, pad, act):
         raise ValueError("conv3x3: x, w and b must be contiguous")
     if min(B, Cin, H, W) < 1 or (pad == "reflect" and min(H, W) < 2):
         raise ValueError(f"conv3x3: unsupported shape {tuple(x.shape)} for {pad} pad")
-    # the forward, and the backward's dx (a conv from Cout to Cin channels)
+    # the forward, and the backward's dx (a conv from Cout to Cin channels):
+    # a block per 4 pixel rows (gridDim.y) and per image and BN output
+    # channels (gridDim.z)
     for cin, cout in ((Cin, w.shape[0]), (w.shape[0], Cin)):
-        if x.dtype == torch.bfloat16:
-            blocks, rows = -(-cout // fwd_tiles(cin, cout)[1]), -(-H // 4)
-        else:
-            blocks, rows = (-(-cout // 16) if cout >= 16 else cout), -(-H // 16)
+        blocks, rows = -(-cout // fwd_tiles(cin, cout, x.dtype)[1]), -(-H // 4)
         if B * blocks > _GRID_YZ or rows > _GRID_YZ:
             raise ValueError("conv3x3: batch x output-channel blocks or row tiles "
                              "exceed the grid")
 
 
-def fwd_tiles(cin: int, cout: int) -> tuple:
-    """(CC, BN) of the bf16 forward kernel for a conv from ``cin`` to
-    ``cout`` channels: input channels staged per step (16 or 32; K steps
-    are 16 deep) and output channels per block (8, 32 or 64; n8 MMA
-    fragments). 96 takes 3 blocks of 32, not 2 of 64 with a fourth empty."""
+def fwd_tiles(cin: int, cout: int, dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """(CC, BN) of the forward kernel of ``dtype`` for a conv from ``cin``
+    to ``cout`` channels: input channels staged per step and output channels
+    per block (n8 MMA fragments). bf16 stages 16 or 32 channels (K steps 16
+    deep) for 8, 32 or 64 output channels (96 takes 3 blocks of 32, not 2
+    of 64 with a fourth empty). float32 stages 8 or 16 (K steps 8 deep;
+    with its hi and lo weights, 32 would leave one block an SM) for 8 or 32
+    (with 64 its split operands spill)."""
+    if dtype == torch.float32:
+        return (8 if cin <= 8 else 16), (8 if cout <= 8 else 32)
     cc = 16 if cin <= 16 else 32
     if cout <= 8:
         return cc, 8
@@ -115,7 +126,7 @@ def fwd_tiles(cin: int, cout: int) -> tuple:
 
 
 def pack_weights(w: torch.Tensor, cc: int, bn: int) -> torch.Tensor:
-    """The bf16 forward's B operand: (Cout, Cin, 3, 3) weights as (N_pad, 9,
+    """The forward's B operand: (Cout, Cin, 3, 3) weights as (N_pad, 9,
     Cin_pad), tap-major and ci-minor (K = tap * Cin_pad + ci, tap = 3 ky +
     kx), zero-filled up to multiples of ``bn`` output and ``cc`` input
     channels, so that the kernel reads whole 16-byte rows and masks only
@@ -124,6 +135,49 @@ def pack_weights(w: torch.Tensor, cc: int, bn: int) -> torch.Tensor:
     wp = w.new_zeros(-(-cout // bn) * bn, 9, -(-cin // cc) * cc)
     wp[:cout, :, :cin] = w.reshape(cout, cin, 9).transpose(1, 2)
     return wp
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """(hi, lo) of float32 ``x``: hi is x rounded to tf32 (10 mantissa bits)
+    to nearest with ties away from zero, as ``cvt.rna.tf32.f32`` rounds, and
+    lo the same rounding of x - hi (exact in float32); hi + lo is x within
+    2^-22 of |x|. Infinities and NaNs pass through as hi (their lo is NaN,
+    as on the card); a finite x that rounds past the largest float gives an
+    infinite hi."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_split takes float32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+
+    def rna(b):
+        r = (b + 0x1000) & -0x2000  # add half of the 13 dropped bits' unit, drop them
+        return torch.where((b & 0x7F800000) == 0x7F800000, b, r).view(torch.float32)
+
+    hi = rna(bits)
+    return hi, rna((x - hi).contiguous().view(torch.int32))
+
+
+def packed_weights(w: torch.Tensor, cc: int, bn: int) -> torch.Tensor:
+    """The forward kernel's packed B operand for ``w`` (:func:`pack_weights`;
+    for float32 its :func:`tf32_split` planes, hi then lo, as (2, N_pad, 9,
+    Cin_pad)), packed at most once per weight tensor and version: the result
+    is kept on ``w`` and reused while ``w`` keeps its data, dtype and
+    ``_version`` (an in-place update, ``load_state_dict`` included, bumps
+    it). Inference tensors have no version counter and are packed every
+    time. Each packing adds one to ``packed_weights.packs``."""
+    key = None if w.is_inference() else (w._version, w.data_ptr(), w.dtype, cc, bn)
+    kept = getattr(w, "_ssde_packed", None)
+    if key is not None and kept is not None and kept[0] == key:
+        return kept[1]
+    wp = pack_weights(w, cc, bn)
+    if w.dtype == torch.float32:
+        wp = torch.stack(tf32_split(wp))
+    packed_weights.packs += 1
+    if key is not None:
+        w._ssde_packed = (key, wp)
+    return wp
+
+
+packed_weights.packs = 0
 
 
 def conv3x3_igemm_reference(x: torch.Tensor, wp: torch.Tensor, cout: int,
@@ -146,19 +200,34 @@ def conv3x3_igemm_reference(x: torch.Tensor, wp: torch.Tensor, cout: int,
     return activation(out, act)
 
 
+def conv3x3_tf32x3_reference(x: torch.Tensor, w: torch.Tensor,
+                             b: Optional[torch.Tensor] = None, pad: str = "zero",
+                             act: str = "none") -> torch.Tensor:
+    """Plain version of the float32 forward kernel's arithmetic: x and the
+    packed weights split into tf32 hi + lo (:func:`tf32_split`), the three
+    products lo * w_hi + hi * w_lo + hi * w_hi, each an implicit GEMM as in
+    :func:`conv3x3_igemm_reference`, summed in that order in float32; then
+    bias and act."""
+    cout, cin = w.shape[:2]
+    (xh, xl), (wh, wl) = tf32_split(x), tf32_split(pack_weights(w, *fwd_tiles(cin, cout,
+                                                                            torch.float32)))
+    out = sum(conv3x3_igemm_reference(a, wp, cout, pad=pad)
+              for a, wp in ((xl, wh), (xh, wl), (xh, wh)))
+    if b is not None:
+        out = out + b.view(1, cout, 1, 1)
+    return activation(out, act)
+
+
 def _launch_fwd(x, w, b, pad, act):
     B, Cin, H, W = x.shape
     Cout = w.shape[0]
     out = torch.empty((B, Cout, H, W), dtype=x.dtype, device=x.device)
-    bias, flags = None if b is None else b.data_ptr(), (int(pad == "reflect"), ACTS.index(act))
-    if x.dtype == torch.bfloat16:
-        cc, bn = fwd_tiles(Cin, Cout)
-        wp = pack_weights(w, cc, bn)
-        launch("ssde_conv3x3_fwd_bf16", x.device, x.data_ptr(), wp.data_ptr(), bias,
-               out.data_ptr(), B, Cin, H, W, Cout, wp.shape[2], cc, bn, *flags)
-    else:
-        launch("ssde_conv3x3_fwd", x.device, x.data_ptr(), w.data_ptr(), bias,
-               out.data_ptr(), B, Cin, H, W, Cout, *flags)
+    cc, bn = fwd_tiles(Cin, Cout, x.dtype)
+    wp = packed_weights(w, cc, bn)
+    name = "ssde_conv3x3_fwd_bf16" if x.dtype == torch.bfloat16 else "ssde_conv3x3_fwd_tf32"
+    launch(name, x.device, x.data_ptr(), wp.data_ptr(), None if b is None else b.data_ptr(),
+           out.data_ptr(), B, Cin, H, W, Cout, wp.shape[-1], cc, bn, int(pad == "reflect"),
+           ACTS.index(act))
     return out
 
 
@@ -199,26 +268,27 @@ def conv3x3_dw_reference(x: torch.Tensor, g: torch.Tensor, pad: str = "zero") ->
         return torch.autograd.grad(out, w, g.to(dt))[0]
 
 
-def dw_tile_m(cout: int) -> int:
-    """Output channels per block of the bf16 weight gradient: 1 for the
-    Cout = 1 heads (their CUDA-core path), else 32 or 64 (m16 MMA
-    fragments); 96 takes 3 blocks of 32, not 2 of 64 with a fourth empty."""
-    return 1 if cout == 1 else (64 if cout % 64 == 0 else 32)
+def dw_tile_m(cout: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Output channels per block of the weight gradient of ``dtype``: 1 for
+    the Cout = 1 heads (their CUDA-core path), else m16 MMA fragments: bf16
+    32 or 64 (96 takes 3 blocks of 32, not 2 of 64 with a fourth empty),
+    float32 32 (its split fragments leave no registers for 64)."""
+    if cout == 1:
+        return 1
+    if dtype == torch.float32:
+        return 32
+    return 64 if cout % 64 == 0 else 32
 
 
 def dw_partitions(B: int, H: int, W: int, Cin: int, Cout: int, sms: int,
                   dtype: torch.dtype = torch.bfloat16) -> int:
     """P, the number of pixel partitions of the weight-gradient kernel of
     ``dtype``: enough blocks for ``_DW_BLOCKS_PER_SM`` per SM, at most one
-    per pixel tile. The float32 kernel's blocks take 16x16 channels and
-    8x32 tiles, the bf16 kernels' :func:`dw_tile_m` x 32 channels and 4x64
-    tiles."""
-    if dtype == torch.bfloat16:
-        tiles, per_sm = B * -(-H // 4) * -(-W // 64), _DW_BLOCKS_PER_SM[dw_tile_m(Cout)]
-        chunks = -(-Cout // dw_tile_m(Cout)) * -(-Cin // 32)
-    else:
-        tiles, per_sm = B * -(-H // 8) * -(-W // 32), _DW_BLOCKS_PER_SM[dtype]
-        chunks = -(-Cout // 16) * -(-Cin // 16)
+    per pixel tile. A block takes :func:`dw_tile_m` x 32 channels and walks
+    4x64 pixel tiles."""
+    m = dw_tile_m(Cout, dtype)
+    tiles, per_sm = B * -(-H // 4) * -(-W // 64), _DW_BLOCKS_PER_SM[(dtype, m)]
+    chunks = -(-Cout // m) * -(-Cin // 32)
     return max(1, min(tiles, -(-per_sm * sms // chunks), _GRID_YZ))
 
 
@@ -247,12 +317,9 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor, pad: str = "zero") -> torch.Ten
                       x.dtype)
     partial = torch.empty((P, Cout, Cin, 3, 3), dtype=torch.float32, device=x.device)
     dw = torch.empty((Cout, Cin, 3, 3), dtype=torch.float32, device=x.device)
-    args = (x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(), B, Cin, H, W,
-            Cout, P)
-    if x.dtype == torch.bfloat16:
-        launch("ssde_conv3x3_dw_bf16", x.device, *args, dw_tile_m(Cout), int(pad == "reflect"))
-    else:
-        launch("ssde_conv3x3_dw", x.device, *args, int(pad == "reflect"))
+    name = "ssde_conv3x3_dw_bf16" if x.dtype == torch.bfloat16 else "ssde_conv3x3_dw_tf32"
+    launch(name, x.device, x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(), B,
+           Cin, H, W, Cout, P, dw_tile_m(Cout, x.dtype), int(pad == "reflect"))
     conv3x3_dw.launches += 1
     return dw
 

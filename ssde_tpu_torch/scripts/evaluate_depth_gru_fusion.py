@@ -42,7 +42,9 @@ Item = Tuple[int, List[np.ndarray], np.ndarray]
 
 def build_evaluator(opt: Options, device="cuda", seed: int = 0) -> GRUStreamEvaluator:
     """float32 models (as the JAX script forces, :38-39), initialised from
-    ``seed`` and then loaded from ``opt.load_weights_folder`` if it is set.
+    ``seed`` and then loaded from ``opt.load_weights_folder`` if it is set
+    (:func:`main` requires it; callers that build an evaluator themselves
+    may run the seeded weights).
 
     Like the JAX script's global matmul-precision switch, this turns TF32
     off for cuDNN convolutions and cuBLAS matmuls process-wide, so that
@@ -137,6 +139,9 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     args, remaining = parser.parse_known_args(argv)
     opt = MonodepthOptions().parse(remaining)
+    if not opt.load_weights_folder:
+        raise ValueError("--load_weights_folder is required: the folder of the trained "
+                         "encoder.pth, depth.pth and gru.pth to evaluate")
     if args.protocol == "mdp":
         raise NotImplementedError("the mono baseline (mdp) is not ported yet")
     if args.device.startswith("cuda") and not torch.cuda.is_available():

@@ -15,22 +15,31 @@ Precision as in the JAX package: the networks run under autocast in
 ``compute_dtype``; the kernel convs of the block cast their operands to it
 (``models/common.kernel_dtype``) and the hidden state is carried in it,
 while the ``h0_layer1`` parameters, the geometry, the warp and the loss
-stay float32. GRU v9 (attention fusion) and v10 are ported. No activation
-is rematerialised: B*T = 24 at the benchmark shape, and the JAX
-``_remat_mode`` policies and ``remat_attention`` are TPU memory workarounds.
+stay float32. GRU v9 (attention fusion) and v10 are ported.
+
+Rematerialisation follows ``--gru_remat`` as the JAX step's ``_remat_mode``
+does (``steps_gru.py:52-87``), with the same B*T thresholds under "auto":
+nothing up to B*T = 24 (the benchmark shape), the unrolled block's steps
+up to 32, and beyond that (the Options defaults B=12, T=10 are 120) the
+encoder and decoder passes too, each through ``torch.utils.checkpoint``.
+The JAX ``remat_attention`` has no counterpart: the attention kernel keeps
+no softmax residuals (its backward recomputes them).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Options
 from ..data.transforms import preprocess_batch
 from ..models import ConvGRUBlocks, DepthDecoder, PoseDecoder, ResnetEncoder, make_gru
 from ..models.common import init_weights_
+from ..models.resnet import running_stats_frozen
 from . import steps
 from .state import TrainState
 
@@ -48,6 +57,33 @@ def check_version(opts: Options) -> None:
         raise NotImplementedError(
             f"GRU {v}: the port runs GRU v9 and v10 only; {v} comes with slice 5 "
             "(GRU v1-v8 and the v4/v6/v7 heads)")
+
+
+def remat_mode(opts: Options) -> str:
+    """What the step rematerialises in the backward (``_remat_mode``,
+    ``ssde_tpu/train/steps_gru.py:52-82``): "0" nothing, "scan" each step of
+    the unrolled block, "1" that and the B*T-frame encoder and decoder
+    passes; "auto" picks by B*T: "0" up to 24, "scan" up to 32, else "1"."""
+    mode = str(opts.gru_remat)
+    if mode == "auto":
+        bt = opts.batch_size * opts.len_sequence
+        return "0" if bt <= 24 else ("scan" if bt <= 32 else "1")
+    if mode in ("0", "false", "False"):
+        return "0"
+    if mode in ("1", "true", "True"):
+        return "1"
+    if mode == "scan":
+        return mode
+    raise ValueError(f"--gru_remat {mode!r}: expected auto, 0, 1 or scan")
+
+
+def _remat(module: torch.nn.Module, *args, **kwargs):
+    """``module(*args, **kwargs)`` with its activations recomputed in the
+    backward instead of kept; the recompute leaves ``module``'s BatchNorm
+    statistics alone (the forward already moved them)."""
+    return checkpoint(module, *args, use_reentrant=False, **kwargs,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          running_stats_frozen(module)))
 
 
 def check_supported(opts: Options) -> None:
@@ -144,10 +180,12 @@ def preprocess_gru_batch(batch: Dict[str, torch.Tensor], opts: Options,
     return inputs, B, T
 
 
-def gru_unroll(models: GRUModels, dec: Dict[str, torch.Tensor], B: int, T: int):
+def gru_unroll(models: GRUModels, dec: Dict[str, torch.Tensor], B: int, T: int,
+               remat: bool = False):
     """The v9/v10 block over T (``steps_gru.py:143-184``): per-scale decoder
     outputs (B*T, C, h, w), B-major -> ``disp/{s}`` (B*T, 1, h, w),
-    B-major. The hidden state starts from h0, in the compute dtype."""
+    B-major. The hidden state starts from h0, in the compute dtype. With
+    ``remat`` each step's activations are recomputed in the backward."""
     hidden = models.gru.initial_state(B)
     if models.opts.compute_dtype == "bfloat16":
         # carry the hidden state in bf16; the h0 parameters stay float32
@@ -155,7 +193,11 @@ def gru_unroll(models: GRUModels, dec: Dict[str, torch.Tensor], B: int, T: int):
     per_t = {k: v.unflatten(0, (B, T)) for k, v in dec.items()}
     disps = []
     for t in range(T):
-        hidden, disp = models.gru({k: v[:, t] for k, v in per_t.items()}, hidden)
+        inputs = {k: v[:, t] for k, v in per_t.items()}
+        if remat:
+            hidden, disp = _remat(models.gru, inputs, hidden)
+        else:
+            hidden, disp = models.gru(inputs, hidden)
         disps.append(disp)
     return {k: torch.stack([d[k] for d in disps], 1).flatten(0, 1) for k in disps[0]}
 
@@ -164,12 +206,18 @@ def gru_loss_fn(models: GRUModels, inputs, B: int, T: int,
                 generator: Optional[torch.Generator] = None):
     """encoder and decoder over B*T frames -> the unrolled block -> poses
     -> warp -> loss (``steps_gru.py:215-259``); returns (loss, losses,
-    outputs). The modules' train/eval mode decides BatchNorm."""
+    outputs). The modules' train/eval mode decides BatchNorm; with a
+    gradient, :func:`remat_mode` decides what is recomputed."""
     opts = models.opts
     device = inputs["color_aug/0/0"].device
+    mode = remat_mode(opts) if torch.is_grad_enabled() else "0"
     with steps._autocast(opts, device):
-        dec = models.depth(models.encoder(inputs["color_aug/0/0"]), pre_disp=models.pre_disp)
-        outputs = gru_unroll(models, dec, B, T)
+        if mode == "1":
+            feats = _remat(models.encoder, inputs["color_aug/0/0"])
+            dec = _remat(models.depth, feats, pre_disp=models.pre_disp)
+        else:
+            dec = models.depth(models.encoder(inputs["color_aug/0/0"]), pre_disp=models.pre_disp)
+        outputs = gru_unroll(models, dec, B, T, remat=mode != "0")
         outputs.update(steps.predict_poses(models, inputs))
     with torch.autocast(device.type, enabled=False):
         outputs = steps.generate_images_pred(inputs, outputs, opts, models.source_ids)

@@ -13,11 +13,14 @@ JAX trainer's ``_check_band_violation`` guard has nothing to check.
 Checkpoints in the reference's per-module ``.pth`` layout (``save_model``,
 ``load_model``) and the depth-metric ``val`` belong to the next training
 slice: until then :meth:`TrainerBase.train` refuses a run whose epochs
-would reach ``save_model``.
+would reach ``save_model``, and the trainers refuse the weights the JAX
+trainers would load (:func:`refuse_weights_to_load`) rather than train
+from a random initialisation instead.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List
 
@@ -49,6 +52,24 @@ def train_device(opt: Options, device=None) -> torch.device:
     return device
 
 
+def refuse_weights_to_load(opt: Options) -> None:
+    """Raise ``NotImplementedError`` naming the flag wherever the JAX
+    trainers load weights (``ssde_tpu/train/trainer.py:160-179``,
+    ``trainer_gru.py:125-149``): ``--load_weights_folder`` set, or
+    ``--mono_pretrained`` on with no folder while ``models/mono_640x192``
+    exists relative to the working directory. Loading is not ported yet."""
+    if opt.load_weights_folder is not None:
+        raise NotImplementedError(
+            f"--load_weights_folder {opt.load_weights_folder}: loading weights into the "
+            "trainers is not ported yet; leave it unset to train from a random "
+            "initialisation")
+    folder = os.path.join("models", "mono_640x192")
+    if opt.mono_pretrained and os.path.isdir(folder):
+        raise NotImplementedError(
+            f"--mono_pretrained: the monodepth2 warm start from {folder} is not ported "
+            "yet; pass --mono_pretrained 0 to train from a random initialisation")
+
+
 class TrainerBase:
     """Data, models, optimizer and the epoch loop; the step itself is
     :attr:`step_fn`, :func:`ssde_tpu_torch.train.steps.train_step` here.
@@ -63,6 +84,7 @@ class TrainerBase:
         assert self.opt.width % 32 == 0, "'width' must be a multiple of 32"
         assert self.opt.frame_ids[0] == 0, "frame_ids must start with 0"
         self.check_supported(self.opt)
+        refuse_weights_to_load(self.opt)
         self.device = train_device(self.opt, device)
         self.step = 0
         self.epoch = 0

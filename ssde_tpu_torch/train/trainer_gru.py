@@ -10,7 +10,8 @@ from epoch ``--h_s_epoch`` on the learned initial hidden states are frozen
 exactly while everything else trains on. Only ``--synthetic_data`` is
 ported (``SyntheticSeqDataset``, the JAX trainer's hermetic path); the KITTI
 sequences, the monodepth2 warm start from ``models/mono_640x192`` and the
-checkpoints are not.
+checkpoints are not, and ``--load_weights_folder`` or that warm start raise
+(:func:`~ssde_tpu_torch.train.trainer.refuse_weights_to_load`).
 """
 
 from __future__ import annotations

@@ -126,9 +126,9 @@ def test_dw_partitions():
     assert dw_partitions(8, 96, 320, 64, 1, 132) == 264
     # 64 -> 192: 3 x 2 blocks of 64 x 32 channels, 2 blocks per SM
     assert dw_partitions(8, 96, 320, 64, 192, 132) == 44
-    # float32 (the CUDA-core kernel): 6 x 2 blocks of 16 x 16 channels, 8x32
-    # tiles, 4 blocks per SM
+    # float32 (the 3xTF32 kernel): 3 x 1 blocks of 32 x 32 channels, 4x64
+    # tiles, 2 blocks per SM; the heads 3 per SM
     f32 = torch.float32
-    assert dw_partitions(8, 192, 640, 32, 96, 132, f32) == 44
-    assert dw_partitions(1, 8, 32, 16, 16, 132, f32) == 1
-    assert dw_partitions(8, 96, 320, 64, 1, 132, f32) == 132
+    assert dw_partitions(8, 192, 640, 32, 96, 132, f32) == 88
+    assert dw_partitions(1, 8, 32, 16, 16, 132, f32) == 2
+    assert dw_partitions(8, 96, 320, 64, 1, 132, f32) == 198

@@ -11,12 +11,13 @@ import no JAX and run on the card with
 (``--noconftest`` because the suite's conftest imports JAX.) chip_smoke.py
 checks the kernels at the slice's 640x192 shapes; the shapes here are the
 ragged ones and the edges of each body's tiling: widths and heights that
-neither the float32 body's 16x32 tile nor the bf16 body's 4x64 tile
-divides, channel counts off their input stages (8; 16 or 32), output
-chunks (16; 8, 32 or 64) and MMA multiples, reflect padding at its 2-pixel
-minimum, the Cout = 1 heads and the 1-channel convs of their dx (K = 9).
-Bounds as in chip_smoke.py: float32 1e-4 relative to max|ref|, bfloat16
-1e-2 against the float32 twin on the same bf16-rounded inputs.
+the 4x64 tile of both bodies does not divide, channel counts off their
+input stages (float32 8 or 16, bf16 16 or 32), output blocks (8, 32 or 64)
+and MMA multiples, reflect padding at its 2-pixel minimum, 1- and 2-pixel
+maps, the Cout = 1 heads and the 1-channel convs of their dx (K = 9).
+Bounds as in chip_smoke.py: float32 1e-4 relative to max|ref| and, against
+float64, 4x the plain float32 conv's own error; bfloat16 1e-2 against the
+float32 twin on the same bf16-rounded inputs.
 """
 
 import itertools
@@ -28,7 +29,8 @@ from ssde_tpu_torch.models.attention import AttentionConv
 from ssde_tpu_torch.ops.attention_win import (attend3, attend3_bwd, attend3_fwd,
                                               attend3_reference)
 from ssde_tpu_torch.ops.conv3x3 import (ACTS, act_grad, conv3x3, conv3x3_dw,
-                                        conv3x3_dw_reference, conv3x3_dx, conv3x3_reference)
+                                        conv3x3_dw_reference, conv3x3_dx, conv3x3_reference,
+                                        packed_weights)
 from ssde_tpu_torch.ops.photometric import (photometric_bwd, photometric_bwd_reference,
                                             photometric_fwd, photometric_reference)
 from ssde_tpu_torch.ops.warp import warp_family_reference
@@ -112,6 +114,87 @@ def test_cuda_inputs_raise_instead_of_falling_back(dev):
     with pytest.raises(TypeError):
         conv3x3(x.half(), wt.detach().half(), b.half())
     assert conv3x3.launches == before
+
+
+# ------------------------------------- the float32 body (3xTF32) at its edges
+# Against float64 the kernel's worst error over a shape's acts and biases is
+# held to F64_RATIO x the plain float32 conv's (cuDNN, TF32 off): float32 in
+# build_evaluator's sense. The smallest maps carry enough outputs and
+# channels for their largest error to be more than one rounding's luck.
+F64_RATIO = 4.0
+
+
+_F32_EDGES = [
+    (3, 40, 9, 1, 1),       # a 1-pixel map (zero pad only: reflect needs 2): the centre tap
+    (2, 7, 8, 2, 2),        # 2-pixel map: the reflect minimum; Cout 8 = one n8 block
+    (1, 9, 9, 3, 65),       # Cin one past CC = 8, Cout one past 8, W one past 64
+    (2, 17, 96, 5, 63),     # Cin one past CC = 16, H one past 4, W one short of 64
+    (1, 32, 192, 7, 130),   # N = 192: 6 blocks of 32
+    (1, 64, 1, 6, 70),      # the head
+    (3, 1, 3, 4, 64),       # a 1-channel conv to 3: K = 9 taps x 8 staged channels
+]
+
+
+@pytest.mark.parametrize("B,cin,cout,h,w,pad", [
+    c + (p,) for c in _F32_EDGES for p in ("zero", "reflect") if p == "zero" or min(c[3:]) >= 2])
+def test_float32_body_at_its_edges(dev, B, cin, cout, h, w, pad):
+    x, wt, b = _inputs(dev, B, cin, cout, h, w, seed=cin + cout)
+    e_got, e_want = 0.0, 0.0  # worst against float64
+    with torch.inference_mode():
+        for act, has_b in itertools.product(ACTS, (True, False)):
+            bi = b if has_b else None
+            got = conv3x3(x, wt, bi, pad, act)
+            want = conv3x3_reference(x, wt, bi, pad, act)
+            ref64 = conv3x3_reference(x.double(), wt.double(), None if bi is None else
+                                      bi.double(), pad, act)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float32 and got.shape == want.shape
+            assert _rel(got, want) <= TOL[torch.float32], (act, has_b)
+            e_got = max(e_got, (got.double() - ref64).abs().max().item())
+            e_want = max(e_want, (want.double() - ref64).abs().max().item())
+    assert e_got <= F64_RATIO * e_want, (e_got, e_want)
+
+
+def test_float32_weights_are_packed_once_per_version(dev):
+    """Serving calls the forward with fixed weights: the second call packs
+    nothing and launches the conv kernel alone; an in-place update of the
+    weights packs them again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(1, 32, 96, 320, device=dev)
+    conv = torch.nn.Conv2d(32, 64, 3, device=dev)
+    with torch.inference_mode():
+        first = conv3x3(x, conv.weight, conv.bias)
+        packs = packed_weights.packs
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            second = conv3x3(x, conv.weight, conv.bias)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert packed_weights.packs == packs and torch.equal(first, second)
+        assert len(kernels) == 1 and "conv3x3_fwd_tf32" in kernels[0], kernels
+        with torch.no_grad():
+            conv.weight.mul_(2.0)
+        third = conv3x3(x, conv.weight, conv.bias)
+    assert packed_weights.packs == packs + 1
+    assert _rel(third, conv3x3_reference(x, conv.weight.detach(), conv.bias.detach())) <= 1e-4
+
+
+def test_float32_kernels_refuse_instead_of_falling_back(dev):
+    """What the float32 kernels cannot take raises on the card: no plain
+    version runs in their place."""
+    x, wt, b = _inputs(dev, 1, 8, 16, 8, 8)
+    before = (conv3x3.launches, conv3x3_dw.launches)
+    with pytest.raises(ValueError, match="grid"):
+        conv3x3(torch.zeros(1, 1, 4 * 65535 + 1, 1, device=dev), wt[:, :1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3_dw(x.transpose(2, 3), torch.randn(1, 16, 8, 8, device=dev))
+    with pytest.raises(TypeError):
+        conv3x3_dw(x, torch.randn(1, 16, 8, 8, device=dev).double())
+    with pytest.raises(ValueError, match="reflect"):
+        conv3x3_dw(x[:, :, :1].contiguous(), torch.randn(1, 16, 1, 8, device=dev), "reflect")
+    assert (conv3x3.launches, conv3x3_dw.launches) == before
 
 
 # --------------------------------------------- the backward: dx (#1) and dW (#2)

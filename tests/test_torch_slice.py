@@ -122,7 +122,8 @@ def test_script_protocol_loops(evaluators, frames):
 def test_script_main_on_a_kitti_tree(tmp_path, monkeypatch):
     """The script's entry point on a miniature KITTI tree: its frame reader
     gives the JAX package's frames, and main() reports the eigen metrics of
-    the bucketed warm-up predictions."""
+    the bucketed warm-up predictions of the weights in --load_weights_folder
+    (a reference-layout folder of the seed-0 models, which main() requires)."""
     from PIL import Image
 
     from ssde_tpu.data.kitti import pil_load_resized
@@ -142,11 +143,16 @@ def test_script_main_on_a_kitti_tree(tmp_path, monkeypatch):
     gt = rng.uniform(1.0, 80.0, (2, 90, 300)).astype(np.float32)
     np.savez(split / "gt_depths.npz", data=gt)
     monkeypatch.setenv("SSDE_SPLITS_DIR", str(tmp_path / "splits"))
+    weights = tmp_path / "weights"
+    weights.mkdir()
+    seeded = build_evaluator(_opts(), "cpu").models
+    for name in ("encoder", "depth", "gru"):
+        torch.save(getattr(seeded, name).state_dict(), weights / f"{name}.pth")
 
     argv = ["--protocol", "warmup", "--warmup_frames", "2", "--eval_batch_size", "2",
             "--device", "cpu", "--gru_version", "v10", "--height", str(H),
             "--width", str(W), "--data_path", str(tmp_path / "kitti")]
-    got = script.main(argv)
+    got = script.main(argv + ["--load_weights_folder", str(weights)])
 
     opt = _opts()
     opt.data_path = str(tmp_path / "kitti")
