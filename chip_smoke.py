@@ -59,7 +59,8 @@ Phases, each fatal on failure:
  14. attn kernels  the windowed-attention forward (#3) and backward (#4)
              against the plain attend3 and its autograd at every GRU v9
              attention shape at 640x192 (B=1, 8; float32 against float64,
-             bf16 against float32) and ragged ones; drel bit-identical twice
+             bf16 against float32), ragged ones and the edges of #4's
+             bands and strips; #4 bit-identical twice
  15. v9 serving    GRU v9 (attention fusion) streaming depth through
              build_evaluator, the scene loop (B=1) and the warm-up loop (B=8),
              float32, seeded weights: launches per frame-step (conv3x3 8,
@@ -1677,13 +1678,18 @@ def attn_kernels(dev):
     autograd Function gives #4's gradients."""
     import torch
 
-    from ssde_tpu_torch.ops.attention_win import (attend3, attend3_bwd, attend3_fwd,
-                                                  attend3_reference)
+    from ssde_tpu_torch.ops.attention_win import (BWD_BAND, BWD_STRIP, attend3, attend3_bwd,
+                                                  attend3_fwd, attend3_reference)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
     cases = [(B, C, h, w) for C, h, w in sorted(set(slice_attention("v9", H, W)))
              for B in (1, GRU_B)]
     cases += [(2, 5, 1, 7), (3, 3, 2, 33), (2, 17, 9, 45), (1, 40, 37, 31)]
+    # the edges of #4's bands of padded rows and strips of padded columns,
+    # odd widths (unpaired rows), H = 1 and W = 1
+    cases += [(1, 2, BWD_BAND - 2, BWD_STRIP - 2), (2, 3, BWD_BAND - 1, BWD_STRIP - 3),
+              (1, 2, BWD_BAND, BWD_STRIP - 1), (2, 2, BWD_BAND + 1, 2 * BWD_STRIP - 1),
+              (1, 3, 2 * BWD_BAND + 1, 1), (1, 4, 1, 2 * BWD_STRIP)]
     errs = {"attend3_fwd": 0.0, "attend3_bwd": 0.0}
     worst = {"fwd f32": 0.0, "fwd f32 vs f64": 0.0, "plain fwd f32 vs f64": 0.0,
              "bwd f32": 0.0, "fwd bf16": 0.0, "bwd bf16": 0.0}

@@ -27,25 +27,41 @@
 // 3.3 GB (0.99 ms) backward, against about 0.25 ms of float32 operations;
 // the 9 exps per pixel come close (2.1 G per frame-step, about 0.5 ms at the
 // MUFU rate), so no pass computes more than 9 exps per output pixel, bar the
-// backward's halo.
+// backward's halo. On an H100 the backward is in fact bound by instruction
+// issue: its row loop is about 230 instructions per output pixel (9 logits,
+// their max, exps and sums, then 5 operations per tap for u, dlogit, a, dq
+// and drel, and the scatter), about 2.9 ms per frame-step, so the design
+// spends instructions sparingly: 2^x and 1/x on the special-function unit,
+// drel summed without a branch, and no staging of k or v.
 //
-// Design. The channels are independent, so a block owns one (b, c) plane
-// and one tile of it, and stages the k and v tiles with their halo in shared
-// memory as float32 (bf16 converted on load).
-//   Forward: a 16x32 output tile, the 18x34 k and v halo tiles; each thread
-//   computes the softmax of 2 pixels in registers.
-//   Backward: the TPU kernel scatters dk/dv into sliding row accumulators
-//   and carries them, and drel, across its sequential row grid; blocks here
-//   run in no order, so dk and dv are a gather instead. A block owns an 8x32
-//   tile of PADDED positions P; the output pixels whose taps reach it are the
-//   tile shifted by (-1, -1) plus a one-pixel halo (10x34). The block
-//   recomputes their softmax once each (from a 12x36 k/v tile), keeps
-//   dlogit_i q and u_i of all 9 taps in shared memory, and then each thread
-//   gathers dk and dv of one P from the (up to) 9 pixels that read it. dq is
-//   written for the pixels P - (1, 1) of the tile, so every pixel once. drel
-//   takes per-block partial sums (a fixed-order warp and block reduction)
-//   and a second pass adds them per channel in a fixed order: no atomics,
-//   the same bits on every run.
+// Design. The channels are independent, so each unit of work lies in one
+// (b, c) plane.
+//   Forward: a block owns a 16x32 output tile and stages the 18x34 k and v
+//   halo tiles in shared memory as float32 (bf16 converted on load); each
+//   thread computes the softmax of 2 pixels in registers.
+//   Backward: the TPU kernel walks rows in order, scattering dk/dv into
+//   sliding accumulators for three padded rows and emitting a row after its
+//   last contribution. Here one warp does the same for one (b, c) plane,
+//   one strip of padded columns and one band of rows. Each lane holds 2
+//   adjacent columns x, x + 1 (a bf16 or float32 pair, one load where the
+//   row is aligned), 64 a warp; it computes the outputs at x and x + 1,
+//   whose taps reach columns x .. x + 3, the 2 of the next lane by
+//   __shfl_down_sync. An output at x adds its taps' a_i = dlogit_i q and
+//   u_i to padded x .. x + 2; what falls on the next lane's columns goes
+//   there by __shfl_up_sync. The warp walks its band's output rows in
+//   order with k and v of padded rows y, y + 1, y + 2 in registers (a
+//   rolling window, the next row prefetched) and dk/dv of padded rows y,
+//   y + 1, y + 2 as accumulators; once output row y has added its kh = 0
+//   taps, padded row y is final and stored. So every padded position is
+//   summed by one lane in a fixed order: no shared memory, no barrier, no
+//   atomics. Halo: lane 31's outputs lack their right neighbour's k/v and
+//   lane 0's padded columns their left neighbour's taps, so a strip owns
+//   the 60 columns of lanes 1..30 (dq, drel of the outputs there, dk/dv
+//   of the padded positions) and strips overlap by 4; a band owns 32
+//   padded rows and recomputes the 2 output rows above it. drel: each lane
+//   sums a_i over the outputs it owns, a fixed-order warp reduction gives
+//   one partial row of 9 per warp, and a second pass adds them per channel
+//   in a fixed order: the same bits on every run.
 //   The TPU kernel saved the 9 softmax weights in its forward because its
 //   backward was VPU-bound; here the saved (B, 9C, H, W) residual would be
 //   the larger cost (9 more maps written forward and read backward, and
@@ -54,6 +70,8 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ssde_tpu_torch/ops/build.py); bound with ctypes.
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,14 +88,15 @@ constexpr int kFwdTileW = kThreadsX;
 constexpr int kFwdHaloH = kFwdTileH + 2;
 constexpr int kFwdHaloW = kFwdTileW + 2;
 
-// backward: 8x32 tile of padded positions, one per thread (ops/attention_win.py
-// mirrors these two as BWD_TILE_H and BWD_TILE_W)
-constexpr int kBwdTileH = kThreadsY;
-constexpr int kBwdTileW = kThreadsX;
-constexpr int kRegH = kBwdTileH + 2;  // output pixels whose taps reach the tile
-constexpr int kRegW = kBwdTileW + 2;
-constexpr int kKvH = kRegH + 2;       // the k/v those pixels read
-constexpr int kKvW = kRegW + 2;
+// backward: a warp holds 64 padded columns, 2 a lane, from 60 s - 2 for
+// strip s, and owns the 60 of lanes 1..30 and a band of 32 padded rows
+// (ops/attention_win.py mirrors these as BWD_WARP_COLS, BWD_STRIP, BWD_BAND)
+constexpr int kLanes = 32;
+constexpr int kBwdWarpCols = 2 * kLanes;
+constexpr int kBwdStrip = kBwdWarpCols - 4;
+constexpr int kBwdBand = 32;
+constexpr int kBwdWarps = 4;  // warps a block, each on its own strip, band or plane
+constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int kReduceThreads = 256;
 
@@ -85,6 +104,49 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// two adjacent values of a row, as one 4- or 8-byte load where aligned
+template <typename T> struct Pair;
+template <> struct Pair<float> { using type = float2; };
+template <> struct Pair<__nv_bfloat16> { using type = __nv_bfloat162; };
+__device__ __forceinline__ float2 to_f32(float2 v) { return v; }
+__device__ __forceinline__ float2 to_f32(__nv_bfloat162 v) { return __bfloat1622float2(v); }
+__device__ __forceinline__ void set_zero(float2& v) { v = make_float2(0.f, 0.f); }
+__device__ __forceinline__ void set_zero(__nv_bfloat162& v) { v = __float2bfloat162_rn(0.f); }
+__device__ __forceinline__ void store(float2* p, float2 v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat162* p, float2 v) { *p = __float22bfloat162_rn(v); }
+
+// Columns x, x + 1 of a row of n values, zero outside [0, n). VEC: n and x
+// even and the row aligned, so the pair is in or out as a whole.
+template <bool VEC, typename T>
+__device__ __forceinline__ typename Pair<T>::type load_pair(const T* __restrict__ row, int x,
+                                                            int n) {
+  typename Pair<T>::type r;
+  set_zero(r);
+  if (VEC) {
+    if (x >= 0 && x < n) r = *reinterpret_cast<const typename Pair<T>::type*>(row + x);
+  } else {
+    if (x >= 0 && x < n) r.x = row[x];
+    if (x + 1 >= 0 && x + 1 < n) r.y = row[x + 1];
+  }
+  return r;
+}
+
+// Store v to columns x (if own0) and x + 1 (if own1); with VEC own0 == own1.
+template <bool VEC, typename T>
+__device__ __forceinline__ void store_pair(T* __restrict__ row, int x, float2 v, bool own0,
+                                           bool own1) {
+  if (VEC) {
+    if (own0) store(reinterpret_cast<typename Pair<T>::type*>(row + x), v);
+  } else {
+    if (own0) store(row + x, v.x);
+    if (own1) store(row + x + 1, v.y);
+  }
+}
+
+__device__ __forceinline__ float2 shfl_down2(float2 v) {
+  return make_float2(__shfl_down_sync(kFull, v.x, 1), __shfl_down_sync(kFull, v.y, 1));
+}
 
 // Stage rows [y0, y0 + rows) x columns [x0, x0 + cols) of one padded
 // (Hp, Wp) plane of k and v into shared memory, zero outside the plane.
@@ -152,116 +214,204 @@ attend3_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// 2^x on the special-function unit (ex2.approx, 2 ulp as exp2f; expf
+// costs a range reduction of 7 more instructions). For the softmax's
+// x <= 0 a result below 2^-126, a weight below 2^-126 of the largest, is
+// flushed to 0 (exp2f would scale around the flush: 3 more instructions).
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 1 / x on the special-function unit (rcp.approx, 1 ulp), for the
+// softmax's denominator in [1, 9]; 1.f / x rounds exactly at 5 more
+// instructions and a slow path.
+__device__ __forceinline__ float rcp_sfu(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The backward of one output pixel from its 9 taps' k_i + rel_i (kr) and
+// v_i: a_i = dlogit_i q and u_i = s_i g into a and u, dq returned. q = g =
+// 0 (a pixel outside the map) gives zeros. The softmax is taken in base 2,
+// logits times log2 e: the same weights to float32 rounding.
+__device__ __forceinline__ float pixel_bwd(const float (&kr)[9], const float (&v)[9], float q,
+                                           float g, float (&a)[9], float (&u)[9]) {
+  const float q2 = q * 1.44269504088896341f;  // log2 e
+  float e[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) e[i] = q2 * kr[i];
+  float m = e[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) m = fmaxf(m, e[i]);
+  float den = 0.f, num = 0.f;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    e[i] = exp2_sfu(e[i] - m);
+    den += e[i];
+    num = fmaf(e[i], v[i], num);
+  }
+  const float inv = rcp_sfu(den), out = num * inv, gi = g * inv;
+  float dq = 0.f;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    u[i] = e[i] * gi;
+    const float dl = u[i] * (v[i] - out);
+    a[i] = dl * q;
+    dq = fmaf(dl, kr[i], dq);
+  }
+  return dq;
+}
+
+// One warp per (plane, band, strip) unit, strips fastest; the source note
+// above says how a warp walks its band.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kBwdWarps * kLanes)
 attend3_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const float* __restrict__ rel,
                    const T* __restrict__ g, T* __restrict__ dq, T* __restrict__ dkp,
-                   T* __restrict__ dvp, float* __restrict__ partial, int C, int H, int W) {
-  __shared__ float ks[kKvH][kKvW];
-  __shared__ float vs[kKvH][kKvW];
-  __shared__ float as[9][kRegH][kRegW];  // dlogit_i * q of each region pixel
-  __shared__ float us[9][kRegH][kRegW];  // u_i = s_i * g
-  __shared__ float red[kThreads / 32][9];
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kThreadsX + tx;
-  const int P0x = blockIdx.x * kBwdTileW, P0y = blockIdx.y * kBwdTileH;
-  const long plane = blockIdx.z;
-  const int c = blockIdx.z % C;
+                   T* __restrict__ dvp, float* __restrict__ partial, int C, int H, int W,
+                   int strips, int bands, long units) {
+  const long unit = (long)blockIdx.x * kBwdWarps + threadIdx.x / kLanes;
+  if (unit >= units) return;  // the whole warp
+  const int lane = threadIdx.x % kLanes;
+  const int strip = (int)(unit % strips), band = (int)(unit / strips % bands);
+  const long plane = unit / strips / bands;  // b * C + c
+  const int c = (int)(plane % C);
   const int Hp = H + 2, Wp = W + 2;
-  const long pplane = (long)Hp * Wp;
-  // region pixel (ry, rx) is output (P0y - 2 + ry, P0x - 2 + rx); it reads
-  // padded rows from P0y - 2 on
-  stage_kv<T, kKvH, kKvW>(kp + plane * pplane, vp + plane * pplane, ks, vs, P0y - 2,
-                          P0x - 2, Hp, Wp, tid);
+  // this lane's padded columns x, x + 1, and the outputs at x, x + 1
+  const int x = strip * kBwdStrip - 2 + 2 * lane;
+  const bool mine = lane >= 1 && lane <= kLanes - 2;
+  const bool own_p0 = mine && x < Wp, own_p1 = mine && x + 1 < Wp;
+  const bool own_o0 = mine && x < W, own_o1 = mine && x + 1 < W;
+  // padded rows [p0, p1) are this band's; output rows from y0 reach them
+  const int p0 = band * kBwdBand, p1 = min(p0 + kBwdBand, Hp);
+  const int y0 = max(p0 - 2, 0);
+  const long pplane = (long)Hp * Wp, oplane = (long)H * W;
+  const T* kb = kp + plane * pplane;
+  const T* vb = vp + plane * pplane;
+  const T* qb = q + plane * oplane;
+  const T* gb = g + plane * oplane;
   float rl[9];
 #pragma unroll
   for (int i = 0; i < 9; ++i) rl[i] = rel[i * C + c];
-  __syncthreads();
 
+  // k, v of padded rows y, y + 1 at this lane's columns and the next lane's
+  float2 k0 = to_f32(load_pair<VEC>(kb + (long)y0 * Wp, x, Wp));
+  float2 v0 = to_f32(load_pair<VEC>(vb + (long)y0 * Wp, x, Wp));
+  float2 k1 = to_f32(load_pair<VEC>(kb + (long)(y0 + 1) * Wp, x, Wp));
+  float2 v1 = to_f32(load_pair<VEC>(vb + (long)(y0 + 1) * Wp, x, Wp));
+  float2 nk0 = shfl_down2(k0), nv0 = shfl_down2(v0), nk1 = shfl_down2(k1), nv1 = shfl_down2(v1);
+  // prefetched: k, v of padded row y + 2 and q, g of output row y
+  typename Pair<T>::type pk = load_pair<VEC>(kb + (long)(y0 + 2) * Wp, x, Wp);
+  typename Pair<T>::type pv = load_pair<VEC>(vb + (long)(y0 + 2) * Wp, x, Wp);
+  typename Pair<T>::type pq = load_pair<VEC>(qb + (long)y0 * W, x, W);
+  typename Pair<T>::type pg = load_pair<VEC>(gb + (long)y0 * W, x, W);
+
+  float2 dk[3], dv[3];  // padded rows y, y + 1, y + 2 at this lane's columns
+#pragma unroll
+  for (int r = 0; r < 2; ++r) dk[r] = dv[r] = make_float2(0.f, 0.f);
   float dr[9];
 #pragma unroll
   for (int i = 0; i < 9; ++i) dr[i] = 0.f;
-  for (int j = tid; j < kRegH * kRegW; j += kThreads) {
-    const int ry = j / kRegW, rx = j % kRegW;
-    const int oy = P0y - 2 + ry, ox = P0x - 2 + rx;
-    if (oy < 0 || oy >= H || ox < 0 || ox >= W) {
+  const int y_end = min(p1, H);  // output rows [y0, y_end); padded rows to p1
+
+  for (int y = y0; y < p1; ++y) {
+    dk[2] = dv[2] = make_float2(0.f, 0.f);
+    if (y < y_end) {
+      const float2 k2 = to_f32(pk), v2 = to_f32(pv), qv = to_f32(pq), gv = to_f32(pg);
+      if (y + 1 < y_end) {
+        pk = load_pair<VEC>(kb + (long)(y + 3) * Wp, x, Wp);
+        pv = load_pair<VEC>(vb + (long)(y + 3) * Wp, x, Wp);
+        pq = load_pair<VEC>(qb + (long)(y + 1) * W, x, W);
+        pg = load_pair<VEC>(gb + (long)(y + 1) * W, x, W);
+      }
+      const float2 nk2 = shfl_down2(k2), nv2 = shfl_down2(v2);
+      // columns x .. x + 3 of padded rows y .. y + 2
+      const float kc[3][4] = {{k0.x, k0.y, nk0.x, nk0.y}, {k1.x, k1.y, nk1.x, nk1.y},
+                              {k2.x, k2.y, nk2.x, nk2.y}};
+      const float vc[3][4] = {{v0.x, v0.y, nv0.x, nv0.y}, {v1.x, v1.y, nv1.x, nv1.y},
+                              {v2.x, v2.y, nv2.x, nv2.y}};
+      const bool own_row = y >= p0;
+      float kr[9], vv[9], a[9], u[9];
+      // what goes to the next lane's columns x + 2 (s) and x + 3 (t)
+      float sk[3], su[3], tk[3], tu[3];
+      // the output at x: taps on columns x .. x + 2
 #pragma unroll
       for (int i = 0; i < 9; ++i) {
-        as[i][ry][rx] = 0.f;
-        us[i][ry][rx] = 0.f;
+        kr[i] = kc[i / 3][i % 3] + rl[i];
+        vv[i] = vc[i / 3][i % 3];
       }
-      continue;
+      const float dq0 = pixel_bwd(kr, vv, qv.x, gv.x, a, u);
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh) {
+        dk[kh].x += a[kh * 3];
+        dv[kh].x += u[kh * 3];
+        dk[kh].y += a[kh * 3 + 1];
+        dv[kh].y += u[kh * 3 + 1];
+        sk[kh] = a[kh * 3 + 2];
+        su[kh] = u[kh * 3 + 2];
+      }
+      const float w0 = own_row && own_o0 ? 1.f : 0.f;  // drel: owned outputs only
+#pragma unroll
+      for (int i = 0; i < 9; ++i) dr[i] = fmaf(a[i], w0, dr[i]);
+      // the output at x + 1: taps on columns x + 1 .. x + 3
+#pragma unroll
+      for (int i = 0; i < 9; ++i) {
+        kr[i] = kc[i / 3][i % 3 + 1] + rl[i];
+        vv[i] = vc[i / 3][i % 3 + 1];
+      }
+      const float dq1 = pixel_bwd(kr, vv, qv.y, gv.y, a, u);
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh) {
+        dk[kh].y += a[kh * 3];
+        dv[kh].y += u[kh * 3];
+        sk[kh] += a[kh * 3 + 1];
+        su[kh] += u[kh * 3 + 1];
+        tk[kh] = a[kh * 3 + 2];
+        tu[kh] = u[kh * 3 + 2];
+      }
+      const float w1 = own_row && own_o1 ? 1.f : 0.f;  // drel: owned outputs only
+#pragma unroll
+      for (int i = 0; i < 9; ++i) dr[i] = fmaf(a[i], w1, dr[i]);
+      if (own_row) store_pair<VEC>(dq + plane * oplane + (long)y * W, x, make_float2(dq0, dq1),
+                                   own_o0, own_o1);
+      // and what the lane to the left sent to this lane's columns
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh) {
+        dk[kh].x += __shfl_up_sync(kFull, sk[kh], 1);
+        dv[kh].x += __shfl_up_sync(kFull, su[kh], 1);
+        dk[kh].y += __shfl_up_sync(kFull, tk[kh], 1);
+        dv[kh].y += __shfl_up_sync(kFull, tu[kh], 1);
+      }
+      k0 = k1, v0 = v1, nk0 = nk1, nv0 = nv1;
+      k1 = k2, v1 = v2, nk1 = nk2, nv1 = nv2;
     }
-    const long o = (plane * H + oy) * W + ox;
-    const float qv = to_f32(q[o]), gv = to_f32(g[o]);
-    float l[9];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) l[i] = qv * (ks[ry + i / 3][rx + i % 3] + rl[i]);
-    float m = l[0];
-#pragma unroll
-    for (int i = 1; i < 9; ++i) m = fmaxf(m, l[i]);
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
-      l[i] = expf(l[i] - m);
-      den += l[i];
-      num = fmaf(l[i], vs[ry + i / 3][rx + i % 3], num);
+    // padded row y has had its last tap (kh = 0 of output row y)
+    if (y >= p0) {
+      const long o = plane * pplane + (long)y * Wp;
+      store_pair<VEC>(dkp + o, x, dk[0], own_p0, own_p1);
+      store_pair<VEC>(dvp + o, x, dv[0], own_p0, own_p1);
     }
-    const float outv = num / den, inv = 1.f / den;
-    // the pixels P - (1, 1) of the tile: dq and drel here, once each
-    const bool own = ry >= 1 && ry <= kBwdTileH && rx >= 1 && rx <= kBwdTileW;
-    float dqv = 0.f;
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
-      const float u = l[i] * inv * gv;
-      const float dl = u * (vs[ry + i / 3][rx + i % 3] - outv);
-      const float a = dl * qv;
-      as[i][ry][rx] = a;
-      us[i][ry][rx] = u;
-      dqv = fmaf(dl, ks[ry + i / 3][rx + i % 3] + rl[i], dqv);
-      if (own) dr[i] += a;
-    }
-    if (own) store(dq + o, dqv);
+    dk[0] = dk[1], dv[0] = dv[1];
+    dk[1] = dk[2], dv[1] = dv[2];
   }
-  __syncthreads();
 
-  // gather: P = (P0y + ty, P0x + tx) is read by tap (kh, kw) of output
-  // P - (kh, kw), region pixel (ty + 2 - kh, tx + 2 - kw)
-  const int Py = P0y + ty, Px = P0x + tx;
-  if (Py < Hp && Px < Wp) {
-    float dk = 0.f, dv = 0.f;
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
-      dk += as[i][ty + 2 - i / 3][tx + 2 - i % 3];
-      dv += us[i][ty + 2 - i / 3][tx + 2 - i % 3];
-    }
-    const long o = plane * pplane + (long)Py * Wp + Px;
-    store(dkp + o, dk);
-    store(dvp + o, dv);
-  }
-
-  // drel: this block's partial sums, reduced in a fixed order
+  // drel: this warp's partial sums, reduced in a fixed order
 #pragma unroll
   for (int i = 0; i < 9; ++i) {
     float v = dr[i];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (tx == 0) red[ty][i] = v;
-  }
-  __syncthreads();
-  if (tid < 9) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) s += red[w][tid];
-    const long tile = (long)blockIdx.y * gridDim.x + blockIdx.x;
-    partial[(plane * gridDim.x * gridDim.y + tile) * 9 + tid] = s;
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
+    if (lane == 0) partial[unit * 9 + i] = v;
   }
 }
 
-// drel[i, c] = the sum over b and the tiles of plane (b, c) of the partial
-// sums, each thread walking a fixed stride, then a fixed-order tree.
+// drel[i, c] = the sum over b and the warps of plane (b, c) of the partial
+// sums, each thread walking a fixed stride of the B * tiles rows, then a
+// fixed-order tree.
 __global__ void __launch_bounds__(kReduceThreads)
 attend3_drel_reduce_kernel(const float* __restrict__ partial, float* __restrict__ drel,
                            int B, int C, int tiles) {
@@ -270,12 +420,10 @@ attend3_drel_reduce_kernel(const float* __restrict__ partial, float* __restrict_
   float acc[9];
 #pragma unroll
   for (int i = 0; i < 9; ++i) acc[i] = 0.f;
-  for (int b = 0; b < B; ++b) {
-    const float* p = partial + ((long)b * C + c) * tiles * 9;
-    for (int t = tid; t < tiles; t += kReduceThreads) {
+  for (int j = tid; j < B * tiles; j += kReduceThreads) {
+    const float* p = partial + (((long)(j / tiles) * C + c) * tiles + j % tiles) * 9;
 #pragma unroll
-      for (int i = 0; i < 9; ++i) acc[i] += p[(long)t * 9 + i];
-    }
+    for (int i = 0; i < 9; ++i) acc[i] += p[i];
   }
 #pragma unroll
   for (int i = 0; i < 9; ++i) red[i][tid] = acc[i];
@@ -299,16 +447,37 @@ void launch_fwd(const void* q, const void* kp, const void* vp, const float* rel,
       static_cast<T*>(out), C, H, W);
 }
 
+template <typename T, bool VEC>
+void launch_bwd_body(const void* q, const void* kp, const void* vp, const float* rel,
+                     const void* g, void* dq, void* dkp, void* dvp, float* partial,
+                     float* drel, int B, int C, int H, int W, int strips, int bands,
+                     cudaStream_t s) {
+  const long units = (long)B * C * strips * bands;
+  attend3_bwd_kernel<T, VEC><<<(unsigned)((units + kBwdWarps - 1) / kBwdWarps),
+                               kBwdWarps * kLanes, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), rel,
+      static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dkp),
+      static_cast<T*>(dvp), partial, C, H, W, strips, bands, units);
+  attend3_drel_reduce_kernel<<<C, kReduceThreads, 0, s>>>(partial, drel, B, C,
+                                                          strips * bands);
+}
+
 template <typename T>
 void launch_bwd(const void* q, const void* kp, const void* vp, const float* rel,
                 const void* g, void* dq, void* dkp, void* dvp, float* partial, float* drel,
-                int B, int C, int H, int W, dim3 grid, cudaStream_t s) {
-  attend3_bwd_kernel<T><<<grid, dim3(kThreadsX, kThreadsY), 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), rel,
-      static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dkp),
-      static_cast<T*>(dvp), partial, C, H, W);
-  attend3_drel_reduce_kernel<<<C, kReduceThreads, 0, s>>>(partial, drel, B, C,
-                                                          grid.x * grid.y);
+                int B, int C, int H, int W, int strips, int bands, cudaStream_t s) {
+  // pairs load as one value where every row starts on a pair: W even and
+  // every map aligned to a pair
+  const auto on_pair = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % (2 * sizeof(T)) == 0;
+  };
+  if (W % 2 == 0 && on_pair(q) && on_pair(kp) && on_pair(vp) && on_pair(g) && on_pair(dq) &&
+      on_pair(dkp) && on_pair(dvp))
+    launch_bwd_body<T, true>(q, kp, vp, rel, g, dq, dkp, dvp, partial, drel, B, C, H, W,
+                             strips, bands, s);
+  else
+    launch_bwd_body<T, false>(q, kp, vp, rel, g, dq, dkp, dvp, partial, drel, B, C, H, W,
+                              strips, bands, s);
 }
 
 bool bad_shape(int B, int C, int H, int W) {
@@ -337,25 +506,27 @@ extern "C" int ssde_attend3_fwd(const void* q, const void* kp, const void* vp,
 
 // Backward for the output gradient g (like q): dq like q, dkp and dvp like
 // kp, drel (9, C) float32. partial is float32 scratch of n_partials * 9,
-// n_partials = B * C * ceil((H + 2) / 8) * ceil((W + 2) / 32) (checked).
+// n_partials = B * C * ceil((W + 2) / 60) * ceil((H + 2) / 32), one per
+// warp (checked).
 // Returns cudaGetLastError() after both launches (0 on success).
 extern "C" int ssde_attend3_bwd(const void* q, const void* kp, const void* vp,
                                 const void* rel, const void* g, void* dq, void* dkp,
                                 void* dvp, void* partial, void* drel, int B, int C, int H,
                                 int W, int n_partials, int dtype, void* stream) {
   if (bad_shape(B, C, H, W)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + 2 + kBwdTileW - 1) / kBwdTileW, (H + 2 + kBwdTileH - 1) / kBwdTileH,
-                  B * C);
-  if (grid.y > 65535 || (long)grid.x * grid.y * B * C != n_partials)
-    return (int)cudaErrorInvalidValue;
+  const int strips = (W + 2 + kBwdStrip - 1) / kBwdStrip;
+  const int bands = (H + 2 + kBwdBand - 1) / kBwdBand;
+  if ((long)B * C * strips * bands != n_partials) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(rel);
   float* pt = static_cast<float*>(partial);
   float* dr = static_cast<float*>(drel);
   if (dtype == 0)
-    launch_bwd<float>(q, kp, vp, r, g, dq, dkp, dvp, pt, dr, B, C, H, W, grid, s);
+    launch_bwd<float>(q, kp, vp, r, g, dq, dkp, dvp, pt, dr, B, C, H, W, strips, bands,
+                      s);
   else if (dtype == 1)
-    launch_bwd<__nv_bfloat16>(q, kp, vp, r, g, dq, dkp, dvp, pt, dr, B, C, H, W, grid, s);
+    launch_bwd<__nv_bfloat16>(q, kp, vp, r, g, dq, dkp, dvp, pt, dr, B, C, H, W, strips,
+                              bands, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

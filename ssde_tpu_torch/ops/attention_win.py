@@ -32,9 +32,16 @@ import torch
 from .build import launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the backward kernel's tile of padded positions; csrc/attention_win.cu's
-# kBwdTileH and kBwdTileW, and its entry point checks the count
-BWD_TILE_H, BWD_TILE_W = 8, 32
+# the backward kernel's partition (csrc/attention_win.cu's kBwdWarpCols,
+# kBwdStrip and kBwdBand): one warp per (b, c) plane, strip of padded
+# columns and band of padded rows. The warp of strip s holds BWD_WARP_COLS
+# padded columns from BWD_STRIP * s - 2, 2 a lane, and computes the outputs
+# at the columns of all lanes but the last (their taps reach the next
+# lane's columns); it owns the BWD_STRIP columns of its lanes but the first
+# and the last (dk, dv there, and dq and drel of the outputs there) and
+# the padded rows [BWD_BAND * b, BWD_BAND * (b + 1)) of band b, whose
+# outputs it computes from 2 rows above the band on.
+BWD_WARP_COLS, BWD_STRIP, BWD_BAND = 64, 60, 32
 
 
 def _taps(t: torch.Tensor, H: int, W: int):
@@ -88,7 +95,7 @@ def _check_args(q, kp, vp, rel, g=None) -> None:
         raise ValueError(f"attend3: the gradient must be {tuple(q.shape)}, got {tuple(g.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("attend3: inputs must be contiguous")
-    if B * C > 65535 or -(-(H + 2) // BWD_TILE_H) > 65535:
+    if B * C > 65535 or bwd_partition(B, C, H, W)[2] > 2**31 - 1:
         raise ValueError(f"attend3: shape {tuple(q.shape)} exceeds the kernels' grid")
 
 
@@ -110,10 +117,13 @@ def attend3_fwd(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     return out
 
 
-def _bwd_partials(B: int, C: int, H: int, W: int) -> int:
-    """Rows of the backward's drel scratch: one per (b, c) plane and tile
-    of padded positions."""
-    return B * C * -(-(H + 2) // BWD_TILE_H) * -(-(W + 2) // BWD_TILE_W)
+def bwd_partition(B: int, C: int, H: int, W: int) -> tuple[int, int, int]:
+    """(strips, bands, n_partials) of the backward kernel: the strips of
+    BWD_STRIP padded columns and the bands of BWD_BAND padded rows of a
+    plane, and the rows of its drel scratch, one per warp. Its entry point
+    checks the count."""
+    strips, bands = -(-(W + 2) // BWD_STRIP), -(-(H + 2) // BWD_BAND)
+    return strips, bands, B * C * strips * bands
 
 
 def attend3_bwd(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, rel: torch.Tensor,
@@ -125,7 +135,7 @@ def attend3_bwd(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, rel: torch.
     _cuda_only(q, "attend3_bwd")
     B, C, H, W = q.shape
     dq, dkp, dvp = torch.empty_like(q), torch.empty_like(kp), torch.empty_like(vp)
-    n = _bwd_partials(B, C, H, W)
+    n = bwd_partition(B, C, H, W)[2]
     partial = torch.empty((n, 9), dtype=torch.float32, device=q.device)
     drel = torch.empty((9, C), dtype=torch.float32, device=q.device)
     launch("ssde_attend3_bwd", q.device, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),

@@ -26,8 +26,8 @@ import pytest
 import torch
 
 from ssde_tpu_torch.models.attention import AttentionConv
-from ssde_tpu_torch.ops.attention_win import (attend3, attend3_bwd, attend3_fwd,
-                                              attend3_reference)
+from ssde_tpu_torch.ops.attention_win import (BWD_BAND, BWD_STRIP, attend3, attend3_bwd,
+                                              attend3_fwd, attend3_reference)
 from ssde_tpu_torch.ops.conv3x3 import (ACTS, act_grad, conv3x3, conv3x3_dw,
                                         conv3x3_dw_reference, conv3x3_dx, conv3x3_reference,
                                         packed_weights)
@@ -391,8 +391,14 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,C,H,W", [(1, 1, 1, 1), (2, 3, 1, 7), (2, 5, 2, 33),
-                                     (3, 17, 9, 45), (1, 40, 37, 31), (2, 32, 16, 64)])
+@pytest.mark.parametrize("B,C,H,W", [
+    (1, 1, 1, 1), (2, 3, 1, 7), (2, 5, 2, 33), (3, 17, 9, 45), (1, 40, 37, 31), (2, 32, 16, 64),
+    # the edges of #4's partition: H + 2 one short of, at and past a band of
+    # padded rows, H a band and 2 bands + 1; W + 2 one short of, at and one
+    # past a strip of padded columns, and past 2; odd W (unpaired rows)
+    (1, 2, BWD_BAND - 2, BWD_STRIP - 2), (2, 3, BWD_BAND - 1, BWD_STRIP - 3),
+    (1, 2, BWD_BAND, BWD_STRIP - 1), (2, 2, BWD_BAND + 1, 2 * BWD_STRIP - 1),
+    (1, 3, 2 * BWD_BAND + 1, 1), (1, 4, 1, 2 * BWD_STRIP)])
 def test_attend3_kernels_match_plain(dev, B, C, H, W, dtype):
     q, kp, vp, rel, g = _attn(dev, B, C, H, W)
     ops = [t.to(dtype) for t in (q, kp, vp)]
@@ -412,6 +418,21 @@ def test_attend3_kernels_match_plain(dev, B, C, H, W, dtype):
         assert _rel(out.float(), attend3_reference(*f, rel)) <= 1e-2
         for a, b in zip(grads, _attn_grads(*f, rel, g.to(dtype).float())):
             assert _rel(a.float(), b) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attend3_backward_takes_maps_off_a_pair_boundary(dev, dtype):
+    # even W, but each map starts one value into its buffer: #4 loads and
+    # stores single values there instead of pairs
+    B, C, H, W = 2, 3, 11, 2 * BWD_STRIP
+    q, kp, vp, rel, g = _attn(dev, B, C, H, W, seed=3)
+    shifted = [torch.empty(t.numel() + 1, dtype=dtype, device=dev)[1:].view(t.shape)
+               for t in (q, kp, vp, g)]
+    for s, t in zip(shifted, (q, kp, vp, g)):
+        s.copy_(t)
+    got = attend3_bwd(shifted[0], shifted[1], shifted[2], rel, shifted[3])
+    want = attend3_bwd(*(t.to(dtype) for t in (q, kp, vp)), rel, g.to(dtype))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_attend3_backward_is_deterministic_and_autograd_reaches_it(dev):
