@@ -59,8 +59,8 @@ Phases, each fatal on failure:
  14. attn kernels  the windowed-attention forward (#3) and backward (#4)
              against the plain attend3 and its autograd at every GRU v9
              attention shape at 640x192 (B=1, 8; float32 against float64,
-             bf16 against float32), ragged ones and the edges of #4's
-             bands and strips; #4 bit-identical twice
+             bf16 against float32), ragged ones and the edges of #3's
+             and #4's bands and strips; #4 bit-identical twice
  15. v9 serving    GRU v9 (attention fusion) streaming depth through
              build_evaluator, the scene loop (B=1) and the warm-up loop (B=8),
              float32, seeded weights: launches per frame-step (conv3x3 8,
@@ -71,7 +71,8 @@ Phases, each fatal on failure:
  17. v9 times      the v9 train step (ms, frame-samples/s, memory, idle
              share, top operations), v9 serving latency and throughput, and
              per attention shape kernels #3/#4 beside their plain versions
-             and the bound
+             and the bound (B=8 bf16, B=1 float32; #3 also at B=8 float32),
+             and the ring pad of one map at B=8 bf16
  18. defaults      the GRU trainer's step at the Options defaults (B=12,
              T=10, 640x192, bf16) for v10 and v9 with the checkpointing
              that --gru_remat auto picks there, and v10 without it: ms per
@@ -82,7 +83,9 @@ the kernels as JSON, each with its launches on the main path (for
 attend3_fwd those of phases 15 and 16 together), its time, its plain
 version's (conv3x3_fwd: float32 serving at B=1, and under bf16_b8_* and
 f32_b8_* its bf16 and float32 bodies at a B=8 frame-step; conv3x3_dx and
-conv3x3_dw: bf16, and float32 under f32_b8_*), the least
+conv3x3_dw: bf16, and float32 under f32_b8_*; attend3_fwd and attend3_bwd:
+a B=8 bf16 frame-step, and #3's float32 serving frame-steps under f32_b8_*
+and f32_b1_*), the least
 time the card could take (``bound_ms``: the bytes the function must move
 over 3.35 TB/s or its operations over the peak rate for its type, the
 larger) and a PyTorch library call's time where one computes the same
@@ -1678,8 +1681,9 @@ def attn_kernels(dev):
     autograd Function gives #4's gradients."""
     import torch
 
-    from ssde_tpu_torch.ops.attention_win import (BWD_BAND, BWD_STRIP, attend3, attend3_bwd,
-                                                  attend3_fwd, attend3_reference)
+    from ssde_tpu_torch.ops.attention_win import (BWD_BAND, BWD_STRIP, FWD_BAND, FWD_STRIP,
+                                                  attend3, attend3_bwd, attend3_fwd,
+                                                  attend3_reference)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
     cases = [(B, C, h, w) for C, h, w in sorted(set(slice_attention("v9", H, W)))
@@ -1690,6 +1694,12 @@ def attn_kernels(dev):
     cases += [(1, 2, BWD_BAND - 2, BWD_STRIP - 2), (2, 3, BWD_BAND - 1, BWD_STRIP - 3),
               (1, 2, BWD_BAND, BWD_STRIP - 1), (2, 2, BWD_BAND + 1, 2 * BWD_STRIP - 1),
               (1, 3, 2 * BWD_BAND + 1, 1), (1, 4, 1, 2 * BWD_STRIP)]
+    # the edges of #3's bands of output rows and strips of output columns:
+    # one short of, at and one past one and two, odd widths, H = 1 and W = 1
+    cases += [(1, 2, FWD_BAND - 1, FWD_STRIP - 1), (2, 3, FWD_BAND, FWD_STRIP),
+              (1, 2, FWD_BAND + 1, FWD_STRIP + 1), (2, 2, 2 * FWD_BAND + 1, 2 * FWD_STRIP - 1),
+              (1, 3, FWD_BAND, 2 * FWD_STRIP), (1, 2, 2 * FWD_BAND, 2 * FWD_STRIP + 1),
+              (2, 3, 1, FWD_STRIP + 1), (1, 4, FWD_BAND + 1, 1)]
     errs = {"attend3_fwd": 0.0, "attend3_bwd": 0.0}
     worst = {"fwd f32": 0.0, "fwd f32 vs f64": 0.0, "plain fwd f32 vs f64": 0.0,
              "bwd f32": 0.0, "fwd bf16": 0.0, "bwd bf16": 0.0}
@@ -1848,13 +1858,20 @@ def v9_times(dev, card, ev, scene, items):
     """Phase 17: the v9 train step; v9 serving latency and throughput; per
     attention shape the kernels #3 and #4 beside their plain versions (the
     plain backward is autograd of the plain forward, which it runs too) and
-    the bound, at B=8 in bf16 (training) and B=1 in float32 (serving).
-    Returns the kernels' entries for one frame-step at B=8, bf16."""
+    the bound, at B=8 in bf16 (training) and B=1 in float32 (serving), and
+    #3 alone at B=8 in float32 (the warm-up protocol's serving); at B=8 bf16
+    also the ring pad of one map (models/attention.pad_ring, 2 a call).
+    Returns the kernels' entries for one frame-step at B=8, bf16, #3's with
+    its float32 frame-steps at B=8 and B=1 under f32_b8_* and f32_b1_*."""
     import torch
 
+    from ssde_tpu_torch.models.attention import pad_ring
     from ssde_tpu_torch.ops.attention_win import attend3_bwd, attend3_fwd, attend3_reference
 
     gru_step_times(dev, card, "v9")
+    # serving's own configuration (build_evaluator): the train step above
+    # turned TF32 on for cuDNN's convs
+    torch.backends.cudnn.allow_tf32 = False
     stream_times(ev, scene, items, card, "v9")
     del ev
     torch.cuda.empty_cache()
@@ -1865,10 +1882,13 @@ def v9_times(dev, card, ev, scene, items):
           f"{ATTN_OPS_FWD} / {ATTN_OPS_BWD} float32 operations per value over 67 TFLOP/s; "
           f"library: none, no single PyTorch call computes this function)")
     frame = {}
-    for B, dtype in ((GRU_B, torch.bfloat16), (1, torch.float32)):
+    for B, dtype in ((GRU_B, torch.bfloat16), (GRU_B, torch.float32), (1, torch.float32)):
         elem = 2 if dtype == torch.bfloat16 else 4
         tag = "bf16" if dtype == torch.bfloat16 else "f32 "
-        total = {k: [0.0] * 4 for k in ("attend3_fwd", "attend3_bwd")}
+        # the B=8 float32 serving frame-step runs no backward
+        names = ("attend3_fwd",) if (B, dtype) == (GRU_B, torch.float32) else (
+            "attend3_fwd", "attend3_bwd")
+        total = {k: [0.0] * 4 for k in names}
         calls = slice_attention("v9", H, W)
         for C, h, w in sorted(set(calls), key=lambda c: -c[1]):
             n = calls.count((C, h, w))
@@ -1885,7 +1905,8 @@ def v9_times(dev, card, ev, scene, items):
                     "attend3_bwd": (ATTN_OPS_BWD * n_out,
                                     elem * (3 * n_out + 4 * n_pad) + 72 * C)}
             row = []
-            for name, (k, p) in pairs.items():
+            for name in names:
+                k, p = pairs[name]
                 t = [cuda_ms(fn, iters=10, warmup=2) for fn in (p, k, k, p)]
                 tk, tp = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
                 bms, _ = bound(*cost[name], "float32")
@@ -1893,6 +1914,10 @@ def v9_times(dev, card, ev, scene, items):
                     total[name][i] += n * v
                 row.append(f"{name[8:]} {tk:.4f} / {tp:.4f} ms, bound {bms:.4f} ms "
                            f"({cost[name][1] / tk / 1e6:.0f} GB/s)")
+            if dtype == torch.bfloat16:
+                bias = rel[0].to(dtype)
+                row.append(f"pad_ring of one map {cuda_ms(lambda: pad_ring(q, bias), 10, 2):.4f}"
+                           f" ms (2 a call)")
             print(f"  {tag} B={B} C={C:3d} {h}x{w} ({n} per frame-step): kernel / plain: "
                   + "; ".join(row) + f" [{card}]")
             del q, kp, vp, rel, g, leaves
@@ -1902,9 +1927,13 @@ def v9_times(dev, card, ev, scene, items):
             print(f"attend3 {name[8:]}: one v9 frame-step ({len(calls)} calls) at B={B} "
                   f"{tag.strip()}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound {bms:.4f} ms "
                   f"({by}; {nbytes / 1e9:.3f} GB) [{card}]")
+            entry = {"ms": tk, "plain_ms": tp, "bound_ms": bms, "bound_by": by,
+                     "library_ms": None}
             if dtype == torch.bfloat16:
-                frame[name] = {"ms": tk, "plain_ms": tp, "bound_ms": bms, "bound_by": by,
-                               "library_ms": None}
+                frame.setdefault(name, {}).update(entry)
+            else:
+                frame.setdefault(name, {}).update(
+                    {f"f32_b{B}_{k}": v for k, v in entry.items()})
     return frame
 
 

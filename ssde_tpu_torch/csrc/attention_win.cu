@@ -19,26 +19,38 @@
 // the one-pixel ring; rel (9, C) float32. Operands are float32 or bf16, the
 // arithmetic float32, the outputs in the operands' dtype, drel float32.
 //
-// What bounds them. Both are bytes-bound on this card: per output value the
-// forward reads q, k, v and writes out (4 maps) for about 70 float32
-// operations and 9 exps, the backward reads q, k, v, g and writes dq, dk, dv
-// (7 maps). At the GRU v9 training shape (16 calls per frame-step, B=8,
-// 640x192, bf16) that is about 1.9 GB (0.56 ms at 3.35 TB/s) forward and
-// 3.3 GB (0.99 ms) backward, against about 0.25 ms of float32 operations;
-// the 9 exps per pixel come close (2.1 G per frame-step, about 0.5 ms at the
-// MUFU rate), so no pass computes more than 9 exps per output pixel, bar the
-// backward's halo. On an H100 the backward is in fact bound by instruction
-// issue: its row loop is about 230 instructions per output pixel (9 logits,
-// their max, exps and sums, then 5 operations per tap for u, dlogit, a, dq
-// and drel, and the scatter), about 2.9 ms per frame-step, so the design
-// spends instructions sparingly: 2^x and 1/x on the special-function unit,
-// drel summed without a branch, and no staging of k or v.
+// What bounds them. Per output value the forward reads q, k, v and writes
+// out (4 maps) for 9 logits, their max, 9 exps and sums; the backward reads
+// q, k, v, g and writes dq, dk, dv (7 maps). At the GRU v9 training shape
+// (16 calls per frame-step, B=8, 640x192, bf16, 235.9 M outputs) that is
+// 1.92 GB forward (0.57 ms at 3.35 TB/s) and 3.3 GB (0.99 ms) backward. The
+// forward's other two bounds sit as close: 9 exps and a reciprocal an output
+// on the special-function unit (16 a clock an SM, about 0.57 ms), and about
+// 70 instructions an output at 4 warp instructions a clock an SM (about 0.5
+// ms), so it loads each value once a pass, keeps k and v in registers, and
+// spends instructions sparingly: 2^x and 1/x on the special-function unit
+// and one FMA a tap into base 2. The backward is bound by instruction issue:
+// its row loop is about 230 instructions per output pixel (9 logits, their
+// max, exps and sums, then 5 operations per tap for u, dlogit, a, dq and
+// drel, and the scatter), about 2.9 ms per frame-step, so it too takes 2^x
+// and 1/x on the special-function unit, sums drel without a branch, and
+// stages no k or v.
 //
 // Design. The channels are independent, so each unit of work lies in one
-// (b, c) plane.
-//   Forward: a block owns a 16x32 output tile and stages the 18x34 k and v
-//   halo tiles in shared memory as float32 (bf16 converted on load); each
-//   thread computes the softmax of 2 pixels in registers.
+// (b, c) plane, and in both passes one warp walks one strip of columns and
+// one band of rows of it: no shared memory, no barrier, no atomics.
+//   Forward: the warp of strip s computes the 64 outputs from column 64 s,
+//   2 a lane: the lane of outputs x, x + 1 loads padded columns x .. x + 3
+//   as two pairs (a bf16 or float32 pair is one load where the row is
+//   aligned; a padded row of W + 2 values starts on a pair but not on 4
+//   values). Its second pair is the next lane's first, loaded again: that
+//   timed faster than passing it by __shfl_down_sync, and leaves no lane
+//   idle as a halo. The warp walks the 16 output rows of its band in order
+//   with k and v of padded rows y, y + 1, y + 2 in registers (a rolling
+//   window, the next padded row and q row prefetched), so it reads 18
+//   padded rows for 16 output rows, and writes each output once. Bands of
+//   16 rows with the row loop unrolled by 2 timed faster than bands of 32
+//   or 8 (PERF.md, Findings).
 //   Backward: the TPU kernel walks rows in order, scattering dk/dv into
 //   sliding accumulators for three padded rows and emitting a row after its
 //   last contribution. Here one warp does the same for one (b, c) plane,
@@ -71,6 +83,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ssde_tpu_torch/ops/build.py); bound with ctypes.
 
+#include <climits>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -78,30 +91,27 @@
 
 namespace {
 
-constexpr int kThreadsX = 32;
-constexpr int kThreadsY = 8;
-constexpr int kThreads = kThreadsX * kThreadsY;
+constexpr int kLanes = 32;
+constexpr unsigned kFull = 0xffffffffu;
 
-// forward: 16x32 output tile, 2 rows per thread
-constexpr int kFwdTileH = 16;
-constexpr int kFwdTileW = kThreadsX;
-constexpr int kFwdHaloH = kFwdTileH + 2;
-constexpr int kFwdHaloW = kFwdTileW + 2;
+// forward: the warp of strip s computes the 64 outputs from column 64 s, 2 a
+// lane, over a band of 16 output rows, reading padded columns 64 s .. 64 s +
+// 65 (ops/attention_win.py mirrors these as FWD_STRIP, FWD_BAND and
+// FWD_WARPS)
+constexpr int kFwdStrip = 2 * kLanes;
+constexpr int kFwdBand = 16;
+constexpr int kFwdWarps = 4;  // warps a block, each on its own strip, band or plane
 
 // backward: a warp holds 64 padded columns, 2 a lane, from 60 s - 2 for
 // strip s, and owns the 60 of lanes 1..30 and a band of 32 padded rows
 // (ops/attention_win.py mirrors these as BWD_WARP_COLS, BWD_STRIP, BWD_BAND)
-constexpr int kLanes = 32;
 constexpr int kBwdWarpCols = 2 * kLanes;
 constexpr int kBwdStrip = kBwdWarpCols - 4;
 constexpr int kBwdBand = 32;
 constexpr int kBwdWarps = 4;  // warps a block, each on its own strip, band or plane
-constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int kReduceThreads = 256;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -148,72 +158,6 @@ __device__ __forceinline__ float2 shfl_down2(float2 v) {
   return make_float2(__shfl_down_sync(kFull, v.x, 1), __shfl_down_sync(kFull, v.y, 1));
 }
 
-// Stage rows [y0, y0 + rows) x columns [x0, x0 + cols) of one padded
-// (Hp, Wp) plane of k and v into shared memory, zero outside the plane.
-template <typename T, int ROWS, int COLS>
-__device__ __forceinline__ void stage_kv(const T* __restrict__ kb, const T* __restrict__ vb,
-                                         float (*ks)[COLS], float (*vs)[COLS], int y0,
-                                         int x0, int Hp, int Wp, int tid) {
-  for (int i = tid; i < ROWS * COLS; i += kThreads) {
-    const int r = i / COLS, col = i % COLS;
-    const int gy = y0 + r, gx = x0 + col;
-    float kv = 0.f, vv = 0.f;
-    if (gy >= 0 && gy < Hp && gx >= 0 && gx < Wp) {
-      const long o = (long)gy * Wp + gx;
-      kv = to_f32(kb[o]);
-      vv = to_f32(vb[o]);
-    }
-    ks[r][col] = kv;
-    vs[r][col] = vv;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attend3_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                   const T* __restrict__ vp, const float* __restrict__ rel,
-                   T* __restrict__ out, int C, int H, int W) {
-  __shared__ float ks[kFwdHaloH][kFwdHaloW];
-  __shared__ float vs[kFwdHaloH][kFwdHaloW];
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int x0 = blockIdx.x * kFwdTileW, y0 = blockIdx.y * kFwdTileH;
-  const long plane = blockIdx.z;  // b * C + c
-  const int c = blockIdx.z % C;
-  const int Hp = H + 2, Wp = W + 2;
-  // output (y, x) reads padded rows y..y+2, so the tile's halo starts at (y0, x0)
-  stage_kv<T, kFwdHaloH, kFwdHaloW>(kp + plane * Hp * Wp, vp + plane * Hp * Wp, ks, vs,
-                                    y0, x0, Hp, Wp, ty * kThreadsX + tx);
-  float rl[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) rl[i] = rel[i * C + c];
-  __syncthreads();
-
-  const int ox = x0 + tx;
-  if (ox >= W) return;
-#pragma unroll
-  for (int r = ty; r < kFwdTileH; r += kThreadsY) {
-    const int oy = y0 + r;
-    if (oy >= H) break;
-    const long o = (plane * H + oy) * W + ox;
-    const float qv = to_f32(q[o]);
-    float l[9];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) l[i] = qv * (ks[r + i / 3][tx + i % 3] + rl[i]);
-    float m = l[0];
-#pragma unroll
-    for (int i = 1; i < 9; ++i) m = fmaxf(m, l[i]);
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
-      const float e = expf(l[i] - m);
-      den += e;
-      num = fmaf(e, vs[r + i / 3][tx + i % 3], num);
-    }
-    store(out + o, num / den);
-  }
-}
-
 // 2^x on the special-function unit (ex2.approx, 2 ulp as exp2f; expf
 // costs a range reduction of 7 more instructions). For the softmax's
 // x <= 0 a result below 2^-126, a weight below 2^-126 of the largest, is
@@ -231,6 +175,103 @@ __device__ __forceinline__ float rcp_sfu(float x) {
   float y;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// The forward of one output pixel from its 9 taps' k_i and v_i. The logits
+// l_i = q (k_i + rel_i) round as the plain version's do (no contraction);
+// the softmax goes to base 2 by one FMA a tap, 2^(l_i log2 e - m log2 e),
+// which rounds once, at the small difference: the rounding of m log2 e is
+// common to the 9 taps and cancels in the normalisation.
+__device__ __forceinline__ float pixel_fwd(const float (&k)[9], const float (&v)[9],
+                                           const float (&rl)[9], float q) {
+  constexpr float kLog2e = 1.44269504088896341f;
+  float l[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) l[i] = __fmul_rn(q, __fadd_rn(k[i], rl[i]));
+  float m = l[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) m = fmaxf(m, l[i]);
+  const float mb = __fmul_rn(m, kLog2e);
+  float den = 0.f, num = 0.f;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const float e = exp2_sfu(fmaf(l[i], kLog2e, -mb));
+    den += e;
+    num = fmaf(e, v[i], num);
+  }
+  return num * rcp_sfu(den);
+}
+
+// One warp per (plane, band, strip) unit, strips fastest; the source note
+// above says how a warp walks its band.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kFwdWarps * kLanes)
+attend3_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                   const T* __restrict__ vp, const float* __restrict__ rel,
+                   T* __restrict__ out, int C, int H, int W, int strips, int bands,
+                   long units) {
+  const long unit = (long)blockIdx.x * kFwdWarps + threadIdx.x / kLanes;
+  if (unit >= units) return;  // the whole warp
+  const int lane = threadIdx.x % kLanes;
+  const int strip = (int)(unit % strips), band = (int)(unit / strips % bands);
+  const long plane = unit / strips / bands;  // b * C + c
+  const int c = (int)(plane % C);
+  const int Wp = W + 2;
+  // the outputs at x, x + 1 of this lane, whose taps read padded x .. x + 3
+  const int x = strip * kFwdStrip + 2 * lane;
+  const bool own0 = x < W, own1 = x + 1 < W;
+  const int y0 = band * kFwdBand, y_end = min(y0 + kFwdBand, H);
+  const long pplane = (long)(H + 2) * Wp, oplane = (long)H * W;
+  float rl[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) rl[i] = rel[i * C + c];
+  // k, v of padded rows y, y + 1 at columns x, x + 1 and x + 2, x + 3
+  const T* kr = kp + plane * pplane + (long)y0 * Wp;
+  const T* vr = vp + plane * pplane + (long)y0 * Wp;
+  float2 k0 = to_f32(load_pair<VEC>(kr, x, Wp)), v0 = to_f32(load_pair<VEC>(vr, x, Wp));
+  float2 nk0 = to_f32(load_pair<VEC>(kr, x + 2, Wp));
+  float2 nv0 = to_f32(load_pair<VEC>(vr, x + 2, Wp));
+  kr += Wp, vr += Wp;
+  float2 k1 = to_f32(load_pair<VEC>(kr, x, Wp)), v1 = to_f32(load_pair<VEC>(vr, x, Wp));
+  float2 nk1 = to_f32(load_pair<VEC>(kr, x + 2, Wp));
+  float2 nv1 = to_f32(load_pair<VEC>(vr, x + 2, Wp));
+  // prefetched: k, v of padded row y + 2 and q of output row y
+  kr += Wp, vr += Wp;
+  typename Pair<T>::type pk = load_pair<VEC>(kr, x, Wp), pv = load_pair<VEC>(vr, x, Wp);
+  typename Pair<T>::type pkn = load_pair<VEC>(kr, x + 2, Wp);
+  typename Pair<T>::type pvn = load_pair<VEC>(vr, x + 2, Wp);
+  const T* qr = q + plane * oplane + (long)y0 * W;
+  typename Pair<T>::type pq = load_pair<VEC>(qr, x, W);
+  T* orow = out + plane * oplane + (long)y0 * W;
+
+#pragma unroll 2
+  for (int y = y0; y < y_end; ++y, orow += W) {
+    const float2 k2 = to_f32(pk), v2 = to_f32(pv), qv = to_f32(pq);
+    const float2 nk2 = to_f32(pkn), nv2 = to_f32(pvn);
+    if (y + 1 < y_end) {
+      kr += Wp, vr += Wp, qr += W;
+      pk = load_pair<VEC>(kr, x, Wp);
+      pv = load_pair<VEC>(vr, x, Wp);
+      pkn = load_pair<VEC>(kr, x + 2, Wp);
+      pvn = load_pair<VEC>(vr, x + 2, Wp);
+      pq = load_pair<VEC>(qr, x, W);
+    }
+    // columns x .. x + 3 of padded rows y .. y + 2
+    const float kc[3][4] = {{k0.x, k0.y, nk0.x, nk0.y}, {k1.x, k1.y, nk1.x, nk1.y},
+                            {k2.x, k2.y, nk2.x, nk2.y}};
+    const float vc[3][4] = {{v0.x, v0.y, nv0.x, nv0.y}, {v1.x, v1.y, nv1.x, nv1.y},
+                            {v2.x, v2.y, nv2.x, nv2.y}};
+    float kk[9], vv[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) kk[i] = kc[i / 3][i % 3], vv[i] = vc[i / 3][i % 3];
+    const float o0 = pixel_fwd(kk, vv, rl, qv.x);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) kk[i] = kc[i / 3][i % 3 + 1], vv[i] = vc[i / 3][i % 3 + 1];
+    const float o1 = pixel_fwd(kk, vv, rl, qv.y);
+    store_pair<VEC>(orow, x, make_float2(o0, o1), own0, own1);
+    k0 = k1, v0 = v1, nk0 = nk1, nv0 = nv1;
+    k1 = k2, v1 = v2, nk1 = nk2, nv1 = nv2;
+  }
 }
 
 // The backward of one output pixel from its 9 taps' k_i + rel_i (kr) and
@@ -438,13 +479,31 @@ attend3_drel_reduce_kernel(const float* __restrict__ partial, float* __restrict_
   if (tid < 9) drel[tid * C + c] = red[tid][0];
 }
 
+// pairs load as one value where every row starts on a pair: W even and
+// every map aligned to a pair
+template <typename T>
+bool on_pair(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % (2 * sizeof(T)) == 0;
+}
+
+template <typename T, bool VEC>
+void launch_fwd_body(const void* q, const void* kp, const void* vp, const float* rel,
+                     void* out, int B, int C, int H, int W, int strips, int bands,
+                     cudaStream_t s) {
+  const long units = (long)B * C * strips * bands;
+  attend3_fwd_kernel<T, VEC><<<(unsigned)((units + kFwdWarps - 1) / kFwdWarps),
+                               kFwdWarps * kLanes, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), rel,
+      static_cast<T*>(out), C, H, W, strips, bands, units);
+}
+
 template <typename T>
 void launch_fwd(const void* q, const void* kp, const void* vp, const float* rel, void* out,
-                int B, int C, int H, int W, cudaStream_t s) {
-  const dim3 grid((W + kFwdTileW - 1) / kFwdTileW, (H + kFwdTileH - 1) / kFwdTileH, B * C);
-  attend3_fwd_kernel<T><<<grid, dim3(kThreadsX, kThreadsY), 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), rel,
-      static_cast<T*>(out), C, H, W);
+                int B, int C, int H, int W, int strips, int bands, cudaStream_t s) {
+  if (W % 2 == 0 && on_pair<T>(q) && on_pair<T>(kp) && on_pair<T>(vp) && on_pair<T>(out))
+    launch_fwd_body<T, true>(q, kp, vp, rel, out, B, C, H, W, strips, bands, s);
+  else
+    launch_fwd_body<T, false>(q, kp, vp, rel, out, B, C, H, W, strips, bands, s);
 }
 
 template <typename T, bool VEC>
@@ -466,13 +525,8 @@ template <typename T>
 void launch_bwd(const void* q, const void* kp, const void* vp, const float* rel,
                 const void* g, void* dq, void* dkp, void* dvp, float* partial, float* drel,
                 int B, int C, int H, int W, int strips, int bands, cudaStream_t s) {
-  // pairs load as one value where every row starts on a pair: W even and
-  // every map aligned to a pair
-  const auto on_pair = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % (2 * sizeof(T)) == 0;
-  };
-  if (W % 2 == 0 && on_pair(q) && on_pair(kp) && on_pair(vp) && on_pair(g) && on_pair(dq) &&
-      on_pair(dkp) && on_pair(dvp))
+  if (W % 2 == 0 && on_pair<T>(q) && on_pair<T>(kp) && on_pair<T>(vp) && on_pair<T>(g) &&
+      on_pair<T>(dq) && on_pair<T>(dkp) && on_pair<T>(dvp))
     launch_bwd_body<T, true>(q, kp, vp, rel, g, dq, dkp, dvp, partial, drel, B, C, H, W,
                              strips, bands, s);
   else
@@ -480,25 +534,29 @@ void launch_bwd(const void* q, const void* kp, const void* vp, const float* rel,
                               strips, bands, s);
 }
 
-bool bad_shape(int B, int C, int H, int W) {
-  return B <= 0 || C <= 0 || H <= 0 || W <= 0 || (long)B * C > 65535;
-}
+bool bad_shape(int B, int C, int H, int W) { return B <= 0 || C <= 0 || H <= 0 || W <= 0; }
 
 }  // namespace
 
 // q (B, C, H, W); kp, vp (B, C, H+2, W+2); rel (9, C) float32; out like q.
-// dtype: 0 float32, 1 bfloat16 (q, kp, vp, out). B * C <= 65535.
+// dtype: 0 float32, 1 bfloat16 (q, kp, vp, out). The grid, one warp per
+// (b, c) plane, strip of 64 output columns and band of 16 output rows, 4
+// warps a block, must have at most 2^31 - 1 blocks.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int ssde_attend3_fwd(const void* q, const void* kp, const void* vp,
                                 const void* rel, void* out, int B, int C, int H, int W,
                                 int dtype, void* stream) {
   if (bad_shape(B, C, H, W)) return (int)cudaErrorInvalidValue;
+  const int strips = (W + kFwdStrip - 1) / kFwdStrip;
+  const int bands = (H + kFwdBand - 1) / kFwdBand;
+  if (((long)B * C * strips * bands + kFwdWarps - 1) / kFwdWarps > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(rel);
   if (dtype == 0)
-    launch_fwd<float>(q, kp, vp, r, out, B, C, H, W, s);
+    launch_fwd<float>(q, kp, vp, r, out, B, C, H, W, strips, bands, s);
   else if (dtype == 1)
-    launch_fwd<__nv_bfloat16>(q, kp, vp, r, out, B, C, H, W, s);
+    launch_fwd<__nv_bfloat16>(q, kp, vp, r, out, B, C, H, W, strips, bands, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

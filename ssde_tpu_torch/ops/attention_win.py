@@ -32,6 +32,15 @@ import torch
 from .build import launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the forward kernel's partition (csrc/attention_win.cu's kFwdStrip,
+# kFwdBand and kFwdWarps): one warp per (b, c) plane, strip of output
+# columns and band of output rows, FWD_WARPS warps a block in a 1-D grid.
+# The warp of strip s and band b writes the outputs at columns
+# [FWD_STRIP * s, FWD_STRIP * (s + 1)), 2 a lane, of the output rows
+# [FWD_BAND * b, FWD_BAND * (b + 1)); the lane of outputs x, x + 1 reads
+# padded columns x .. x + 3 of the padded rows from FWD_BAND * b to 2 past
+# the band.
+FWD_STRIP, FWD_BAND, FWD_WARPS = 64, 16, 4
 # the backward kernel's partition (csrc/attention_win.cu's kBwdWarpCols,
 # kBwdStrip and kBwdBand): one warp per (b, c) plane, strip of padded
 # columns and band of padded rows. The warp of strip s holds BWD_WARP_COLS
@@ -95,7 +104,7 @@ def _check_args(q, kp, vp, rel, g=None) -> None:
         raise ValueError(f"attend3: the gradient must be {tuple(q.shape)}, got {tuple(g.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("attend3: inputs must be contiguous")
-    if B * C > 65535 or bwd_partition(B, C, H, W)[2] > 2**31 - 1:
+    if fwd_partition(B, C, H, W)[2] > 2**31 - 1 or bwd_partition(B, C, H, W)[2] > 2**31 - 1:
         raise ValueError(f"attend3: shape {tuple(q.shape)} exceeds the kernels' grid")
 
 
@@ -115,6 +124,15 @@ def attend3_fwd(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
            rel.data_ptr(), out.data_ptr(), B, C, H, W, _DTYPES[q.dtype])
     attend3_fwd.launches += 1
     return out
+
+
+def fwd_partition(B: int, C: int, H: int, W: int) -> tuple[int, int, int]:
+    """(strips, bands, blocks) of the forward kernel: the strips of
+    FWD_STRIP output columns and the bands of FWD_BAND output rows of a
+    plane, and its 1-D grid of FWD_WARPS warps a block. Its entry point
+    computes the same and refuses more than 2^31 - 1 blocks."""
+    strips, bands = -(-W // FWD_STRIP), -(-H // FWD_BAND)
+    return strips, bands, -(-B * C * strips * bands // FWD_WARPS)
 
 
 def bwd_partition(B: int, C: int, H: int, W: int) -> tuple[int, int, int]:

@@ -1,8 +1,18 @@
-"""The partition of the backward attention kernel #4
+"""The partitions of the attention kernels #3 (``ssde_attend3_fwd``) and #4
 (``ssde_attend3_bwd``, ssde_tpu_torch/csrc/attention_win.cu), checked on
-the CPU from the wrapper's constants and ``bwd_partition`` alone.
+the CPU from the wrapper's constants and ``fwd_partition`` and
+``bwd_partition`` alone.
 
-A warp takes one (b, c) plane, one strip of padded columns and one band of
+#3: a warp takes one (b, c) plane, one strip of output columns and one band
+of output rows. The warp of strip s writes the outputs at columns from
+FWD_STRIP * s, 2 a lane; the lane of outputs x, x + 1 reads padded columns
+x .. x + 3, and the band's output rows read 2 padded rows past the band.
+The checks: every output pixel is written by one warp, every tap of an
+output a warp writes lies in the padded columns and rows its lane reads
+and in the map, and the grid covers the warps.
+
+#4:
+a warp takes one (b, c) plane, one strip of padded columns and one band of
 padded rows. The warp of strip s holds BWD_WARP_COLS padded columns from
 BWD_STRIP * s - halo, 2 a lane; it computes the outputs at the columns of
 every lane but the last, and owns the columns of every lane but the first
@@ -19,8 +29,9 @@ import pytest
 import torch
 
 from ssde_tpu_torch.ops import attention_win
-from ssde_tpu_torch.ops.attention_win import (BWD_BAND, BWD_STRIP, BWD_WARP_COLS,
-                                              bwd_partition)
+from ssde_tpu_torch.ops.attention_win import (BWD_BAND, BWD_STRIP, BWD_WARP_COLS, FWD_BAND,
+                                              FWD_STRIP, FWD_WARPS, bwd_partition,
+                                              fwd_partition)
 
 LANES = BWD_WARP_COLS // 2  # 2 columns a lane
 HALO = (BWD_WARP_COLS - BWD_STRIP) // 2
@@ -33,6 +44,56 @@ SHAPES = [(1, 1), (1, 2), (2, 1), (2, 2), (3, 57), (BWD_BAND - 2, BWD_STRIP - 2)
           (BWD_BAND + 1, 2 * BWD_STRIP - 1), (2 * BWD_BAND + 1, 1), (1, 2 * BWD_STRIP),
           (2 * BWD_BAND - 2, 3 * BWD_STRIP - 2), (9, 45), (37, 31), (17, 178), (100, 3),
           (24, 80), (48, 160), (96, 320), (192, 640)]
+
+
+# #3's own edges: H one short of, at and one past a band and past 2 bands;
+# W one short of, at and one past a strip and 2 strips
+FWD_SHAPES = [(FWD_BAND - 1, FWD_STRIP - 1), (FWD_BAND, FWD_STRIP), (FWD_BAND + 1, FWD_STRIP + 1),
+              (2 * FWD_BAND + 1, 2 * FWD_STRIP - 1), (FWD_BAND, 2 * FWD_STRIP),
+              (2 * FWD_BAND, 2 * FWD_STRIP + 1), (1, FWD_STRIP + 1), (FWD_BAND + 1, 1)]
+
+
+@pytest.mark.parametrize("H,W", SHAPES + FWD_SHAPES)
+def test_forward_writes_every_output_once_from_what_its_warp_holds(H, W):
+    strips, bands, blocks = fwd_partition(1, 1, H, W)
+    lanes = FWD_STRIP // 2
+    written = np.zeros((H, W), int)
+    for s in range(strips):
+        x0 = s * FWD_STRIP
+        for b in range(bands):
+            y0 = b * FWD_BAND
+            rows = range(y0, min(y0 + FWD_BAND, H))
+            held_rows = set(range(y0, min(y0 + FWD_BAND + 2, H + 2)))
+            for l in range(lanes):
+                # lane l: outputs x0 + 2l and x0 + 2l + 1, padded x0 + 2l .. + 3
+                held = set(range(x0 + 2 * l, x0 + 2 * l + 4))
+                for x in (x0 + 2 * l, x0 + 2 * l + 1):
+                    if x >= W:
+                        continue
+                    # the taps of output x: padded x .. x + 2
+                    assert {x, x + 1, x + 2} <= held and x + 2 < W + 2
+                    for y in rows:
+                        assert {y, y + 1, y + 2} <= held_rows and y + 2 < H + 2
+                        written[y, x] += 1
+    assert (written == 1).all()
+    assert (blocks - 1) * FWD_WARPS < strips * bands <= blocks * FWD_WARPS
+    assert fwd_partition(3, 5, H, W) == (strips, bands, -(-15 * strips * bands // FWD_WARPS))
+
+
+def test_grid_limit_is_the_kernels_own():
+    # B * C past 65535 fits the warp grids; a grid past 2^31 - 1 blocks does not
+    # (meta tensors: shapes without storage)
+    def args(B, C, H, W):
+        maps = [torch.empty(s, device="meta") for s in
+                ((B, C, H, W), (B, C, H + 2, W + 2), (B, C, H + 2, W + 2))]
+        return (*maps, torch.empty((9, C), device="meta"))
+
+    attention_win._check_args(*args(70000, 1, 1, 1))
+    assert fwd_partition(70000, 1, 1, 1)[2] <= 2**31 - 1
+    big = (2**16, 2**12, FWD_BAND * 2**6, FWD_STRIP)
+    assert fwd_partition(*big)[2] > 2**31 - 1
+    with pytest.raises(ValueError, match="grid"):
+        attention_win._check_args(*args(*big))
 
 
 def _warps(H, W):

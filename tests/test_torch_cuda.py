@@ -26,8 +26,8 @@ import pytest
 import torch
 
 from ssde_tpu_torch.models.attention import AttentionConv
-from ssde_tpu_torch.ops.attention_win import (BWD_BAND, BWD_STRIP, attend3, attend3_bwd,
-                                              attend3_fwd, attend3_reference)
+from ssde_tpu_torch.ops.attention_win import (BWD_BAND, BWD_STRIP, FWD_BAND, FWD_STRIP, attend3,
+                                              attend3_bwd, attend3_fwd, attend3_reference)
 from ssde_tpu_torch.ops.conv3x3 import (ACTS, act_grad, conv3x3, conv3x3_dw,
                                         conv3x3_dw_reference, conv3x3_dx, conv3x3_reference,
                                         packed_weights)
@@ -398,7 +398,14 @@ def _rel(a, b):
     # past a strip of padded columns, and past 2; odd W (unpaired rows)
     (1, 2, BWD_BAND - 2, BWD_STRIP - 2), (2, 3, BWD_BAND - 1, BWD_STRIP - 3),
     (1, 2, BWD_BAND, BWD_STRIP - 1), (2, 2, BWD_BAND + 1, 2 * BWD_STRIP - 1),
-    (1, 3, 2 * BWD_BAND + 1, 1), (1, 4, 1, 2 * BWD_STRIP)])
+    (1, 3, 2 * BWD_BAND + 1, 1), (1, 4, 1, 2 * BWD_STRIP),
+    # the edges of #3's partition: H one short of, at and one past a band of
+    # output rows and past 2; W one short of, at and one past a strip of
+    # output columns and 2; odd W, H = 1 and W = 1
+    (1, 2, FWD_BAND - 1, FWD_STRIP - 1), (2, 3, FWD_BAND, FWD_STRIP),
+    (1, 2, FWD_BAND + 1, FWD_STRIP + 1), (2, 2, 2 * FWD_BAND + 1, 2 * FWD_STRIP - 1),
+    (1, 3, FWD_BAND, 2 * FWD_STRIP), (1, 2, 2 * FWD_BAND, 2 * FWD_STRIP + 1),
+    (2, 3, 1, FWD_STRIP + 1), (1, 4, FWD_BAND + 1, 1)])
 def test_attend3_kernels_match_plain(dev, B, C, H, W, dtype):
     q, kp, vp, rel, g = _attn(dev, B, C, H, W)
     ops = [t.to(dtype) for t in (q, kp, vp)]
@@ -433,6 +440,20 @@ def test_attend3_backward_takes_maps_off_a_pair_boundary(dev, dtype):
     got = attend3_bwd(shifted[0], shifted[1], shifted[2], rel, shifted[3])
     want = attend3_bwd(*(t.to(dtype) for t in (q, kp, vp)), rel, g.to(dtype))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attend3_forward_takes_maps_off_a_pair_boundary(dev, dtype):
+    # even W, but each map starts one value into its buffer: #3 loads single
+    # values there instead of pairs
+    B, C, H, W = 2, 3, FWD_BAND + 3, 2 * FWD_STRIP
+    q, kp, vp, rel, _ = _attn(dev, B, C, H, W, seed=4)
+    shifted = [torch.empty(t.numel() + 1, dtype=dtype, device=dev)[1:].view(t.shape)
+               for t in (q, kp, vp)]
+    for s, t in zip(shifted, (q, kp, vp)):
+        s.copy_(t)
+    assert torch.equal(attend3_fwd(*shifted, rel), attend3_fwd(q.to(dtype), kp.to(dtype),
+                                                               vp.to(dtype), rel))
 
 
 def test_attend3_backward_is_deterministic_and_autograd_reaches_it(dev):
