@@ -24,7 +24,9 @@ Phases, each fatal on failure:
              warm-up protocol throughput at B=8 (CUDA events / host clock)
   6. mono kernels  the family warp (#7) and the photometric error forward
              and backward (#5, #6) against their plain versions at the mono
-             slice's shapes (640x192, B=12 and 48, G=10B) and ragged ones
+             slice's shapes (640x192, B=12 and 48, G=10B) and ragged ones;
+             the photometric kernels also at the edges of their strips and
+             bands, at W = 1, 2, 3 (mod 4) and at G = 240
   7. mono slice    the mono trainer built by the port's entry point at the
              Options defaults (ResNet18, B=12, bf16 autocast, synthetic
              data): one epoch of 8 steps and its val(); finite losses,
@@ -34,7 +36,8 @@ Phases, each fatal on failure:
              kernels' part float32, the automask argmin of a float64 CPU
              run): the losses, every gradient
   9. mono times    train step ms and samples/s at B=12 and 48, each new
-             kernel against its plain version, the device idle share
+             kernel against its plain version, the device idle share; the
+             photometric kernels also at G = 240 and 1200 beside their bounds
  10. gru kernels   the conv3x3 backward (the forward kernel as dx, the
              weight-gradient kernel #2, db) against autograd of the plain
              version at every GRU v10 conv shape at B=8 (640x192), both pads,
@@ -616,7 +619,8 @@ def mono_kernels(dev, card):
     """Phase 6: each new kernel against its plain version on the card."""
     import torch
 
-    from ssde_tpu_torch.ops.photometric import (photometric_bwd, photometric_bwd_reference,
+    from ssde_tpu_torch.ops.photometric import (BWD_BAND, BWD_STRIP, FWD_BAND, FWD_STRIP,
+                                                photometric_bwd, photometric_bwd_reference,
                                                 photometric_fwd, photometric_reference)
     from ssde_tpu_torch.ops.warp import warp_family_reference
     from ssde_tpu_torch.ops.warp_banded import grad_masks, warp_family_fwd
@@ -673,6 +677,28 @@ def mono_kernels(dev, card):
         if not (werr <= TOL_WARP and gerr <= TOL_WARP and ferr <= TOL_PHOTO
                 and berr <= TOL_PHOTO_BWD):
             fail(f"mono kernel disagrees with its plain version at {kind} B={B} {h}x{w}")
+    # the photometric kernels alone at the edges of their partition
+    # (ops/photometric.py): W = 1, 2, 3 (mod 4) (single loads where a row is
+    # off a float2), W and H one off a strip or band, and G = 240 (the GRU
+    # step's B*T = 24) at 640x192
+    for G, B, h, w in [(10, 1, 5, 61), (10, 1, 7, 62), (10, 1, 9, 63),
+                       (20, 2, FWD_BAND + 1, FWD_STRIP - 1), (20, 2, BWD_BAND - 1, BWD_STRIP + 1),
+                       (20, 2, 2 * BWD_BAND + 1, 2 * BWD_STRIP - 1), (10, 1, 2, 2),
+                       (240, 24, H, W)]:
+        preds = torch.rand(G, 3, h, w, device=dev, generator=gen)
+        targ = torch.rand(B, 3, h, w, device=dev, generator=gen)
+        gout = torch.randn(G, h, w, device=dev, generator=gen) / preds[0].numel()
+        with torch.no_grad():
+            pf, pf_ref = photometric_fwd(preds, targ), photometric_reference(preds, targ)
+            pb, pb_ref = (photometric_bwd(preds, targ, gout),
+                          photometric_bwd_reference(preds, targ, gout))
+        torch.cuda.synchronize()
+        ferr, berr = (pf - pf_ref).abs().max().item(), _rel(pb, pb_ref)
+        errs["photometric_fwd"] = max(errs["photometric_fwd"], ferr)
+        errs["photometric_bwd"] = max(errs["photometric_bwd"], (pb - pb_ref).abs().max().item())
+        print(f"  photometric G={G} B={B} {h}x{w}: fwd abs {ferr:.3e}, bwd rel {berr:.3e}")
+        if not (ferr <= TOL_PHOTO and berr <= TOL_PHOTO_BWD):
+            fail(f"photometric kernel disagrees with its plain version at G={G} {h}x{w}")
     print("mono kernels vs plain versions ok; worst abs " +
           ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     return errs
@@ -866,7 +892,7 @@ def mono_times(dev, card):
     from ssde_tpu_torch.data.pipeline import to_device
     from ssde_tpu_torch.data.synthetic import make_synthetic_batch
     from ssde_tpu_torch.ops.photometric import (photometric_bwd, photometric_bwd_reference,
-                                                photometric_fwd, photometric_reference)
+                                                photometric_fwd, photometric_reference, work)
     from ssde_tpu_torch.ops.warp import warp_family_reference
     from ssde_tpu_torch.ops.warp_banded import warp_family_fwd
     from ssde_tpu_torch.train.state import TrainState
@@ -897,14 +923,13 @@ def mono_times(dev, card):
                 img_s, grids_s, padding_mode="border", align_corners=False)}
             # (FLOPs, bytes): every input read once, every output written once,
             # float32; operations counted per output value: the warp's 4-tap
-            # lerp and 2 residuals ~20, the photometric forward's five 3x3 box
-            # sums, products and SSIM ~70 a channel, its backward ~3x that
-            n_warp, n_pred, n_img = S_SCALES * B * 3 * H * W, 10 * B * 3 * H * W, B * 3 * H * W
+            # lerp and 2 residuals ~20; the photometric kernels' 52.5 and 93.5 a
+            # value, counted from their bodies (ops/photometric.work)
+            n_warp, n_img = S_SCALES * B * 3 * H * W, B * 3 * H * W
             cost = {"warp_family_fwd": (20 * n_warp, 4 * (n_img + S_SCALES * B * H * W * 2
                                                          + 3 * n_warp)),
-                    "photometric_fwd": (70 * n_pred, 4 * (n_pred + n_img + 10 * B * H * W)),
-                    "photometric_bwd": (210 * n_pred,
-                                        4 * (2 * n_pred + n_img + 10 * B * H * W))}
+                    "photometric_fwd": work("fwd", 10 * B, B, 3, H, W),
+                    "photometric_bwd": work("bwd", 10 * B, B, 3, H, W)}
             for name, (k, p) in pairs.items():
                 tp1, tk1, tk2, tp2 = cuda_ms(p), cuda_ms(k), cuda_ms(k), cuda_ms(p)
                 tk, tp = (tk1 + tk2) / 2, (tp1 + tp2) / 2
@@ -918,6 +943,20 @@ def mono_times(dev, card):
                       f"{tp:.4f} ms, library " + ("none" if tl is None else f"{tl:.4f} ms")
                       + f", bound {bms:.4f} ms ({by}) [{card}]")
         del img, grids, preds, gout, img_s, grids_s
+        if B == MONO_B:  # the GRU steps' G = 240 (B=8, T=3) and 1200 (B=12, T=10): kernels
+            for G in (240, 1200):  # alone (the plain backward would need tens of GB)
+                preds = torch.rand(G, 3, H, W, device=dev, generator=gen)
+                targ = torch.rand(G // 10, 3, H, W, device=dev, generator=gen)
+                gout = torch.randn(G, H, W, device=dev, generator=gen)
+                with torch.no_grad():
+                    for kind, fn in (("fwd", lambda: photometric_fwd(preds, targ)),
+                                     ("bwd", lambda: photometric_bwd(preds, targ, gout))):
+                        bms, by = bound(*work(kind, G, G // 10, 3, H, W), "float32")
+                        times[f"photometric_{kind}"][f"g{G}_ms"] = tk = cuda_ms(fn)
+                        times[f"photometric_{kind}"][f"g{G}_bound_ms"] = bms
+                        print(f"  photometric_{kind} G={G} {H}x{W}: kernel {tk:.4f} ms, bound "
+                              f"{bms:.4f} ms ({by}) [{card}]")
+                del preds, targ, gout
 
         opts = Options(height=H, width=W, batch_size=B)  # bf16 autocast, the defaults
         models = build_mono_models(opts, dev, torch.Generator().manual_seed(SEED))

@@ -31,6 +31,7 @@ from ssde_tpu_torch.ops.attention_win import (BWD_BAND, BWD_STRIP, FWD_BAND, FWD
 from ssde_tpu_torch.ops.conv3x3 import (ACTS, act_grad, conv3x3, conv3x3_dw,
                                         conv3x3_dw_reference, conv3x3_dx, conv3x3_reference,
                                         packed_weights)
+from ssde_tpu_torch.ops import photometric as photo
 from ssde_tpu_torch.ops.photometric import (photometric_bwd, photometric_bwd_reference,
                                             photometric_fwd, photometric_reference)
 from ssde_tpu_torch.ops.warp import warp_family_reference
@@ -309,7 +310,16 @@ def test_warp_family_matches_twin(dev, S, B, H, W, spread):
 
 
 @pytest.mark.parametrize("G,B,H,W", [(1, 1, 2, 2), (3, 1, 3, 5), (6, 2, 17, 33),
-                                     (4, 4, 9, 100), (10, 2, 192, 640)])
+                                     (4, 4, 9, 100), (10, 2, 192, 640),
+                                     # W = 1, 2, 3 (mod 4)
+                                     (2, 1, 9, 61), (2, 1, 9, 62), (2, 1, 9, 63),
+                                     # one off the kernels' bands and strips
+                                     (4, 2, photo.FWD_BAND + 1, photo.FWD_STRIP - 1),
+                                     (4, 2, photo.FWD_BAND - 1, photo.FWD_STRIP + 1),
+                                     (4, 2, photo.BWD_BAND - 1, photo.BWD_STRIP + 1),
+                                     (4, 2, 2 * photo.BWD_BAND + 1, 2 * photo.BWD_STRIP - 1),
+                                     # G / B = 10, and the GRU step's G = 240
+                                     (20, 2, 192, 640), (240, 24, 192, 640)])
 def test_photometric_matches_twins(dev, G, B, H, W):
     g = torch.Generator(device=dev).manual_seed(1)
     pred = torch.rand(G, 3, H, W, device=dev, generator=g)
@@ -321,6 +331,57 @@ def test_photometric_matches_twins(dev, G, B, H, W):
     torch.testing.assert_close(out, photometric_reference(pred, targ), atol=1e-5, rtol=0)
     want = photometric_bwd_reference(pred, targ, gout)
     torch.testing.assert_close(dpred, want, atol=1e-4 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("C", [1, 4])
+def test_photometric_takes_any_channel_count(dev, C):
+    g = torch.Generator(device=dev).manual_seed(2)
+    pred = torch.rand(6, C, 19, 70, device=dev, generator=g)
+    targ = torch.rand(3, C, 19, 70, device=dev, generator=g)
+    gout = torch.randn(6, 19, 70, device=dev, generator=g)
+    torch.testing.assert_close(photometric_fwd(pred, targ), photometric_reference(pred, targ),
+                               atol=1e-5, rtol=0)
+    want = photometric_bwd_reference(pred, targ, gout)
+    torch.testing.assert_close(photometric_bwd(pred, targ, gout), want,
+                               atol=1e-4 * want.abs().max().item(), rtol=0)
+
+
+def test_photometric_flat_texture_against_float64(dev):
+    """Flat 4x4 blocks, and a band of rows where pred equals the target: the
+    clip (n = d) and the sign (x = y) meet their ties there. Held to a
+    float64 run at tests/test_torch_photometric.py's bounds (float32 itself
+    is coarse in flat windows): forward 1e-4, backward 1e-3 of max."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    blocks = torch.rand(6, 3, 16, 40, device=dev, generator=g, dtype=torch.float64)
+    flat = blocks.repeat_interleave(4, 2).repeat_interleave(4, 3)
+    pred, targ = flat[:4].float().contiguous(), flat[4:].float().contiguous()
+    pred[:, :, 20:30] = targ.repeat(2, 1, 1, 1)[:, :, 20:30]
+    gout = torch.randn(4, 64, 160, device=dev, generator=g)
+    p64, t64, g64 = pred.double(), targ.double(), gout.double()
+    torch.testing.assert_close(photometric_fwd(pred, targ).double(),
+                               photometric_reference(p64, t64), atol=1e-4, rtol=0)
+    want = photometric_bwd_reference(p64, t64, g64)
+    torch.testing.assert_close(photometric_bwd(pred, targ, gout).double(), want,
+                               atol=1e-3 * want.abs().max().item(), rtol=0)
+
+
+def test_photometric_backward_is_deterministic_and_takes_planes_off_a_float2(dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    pred = torch.rand(20, 3, 48, 160, device=dev, generator=g)
+    targ = torch.rand(2, 3, 48, 160, device=dev, generator=g)
+    gout = torch.randn(20, 48, 160, device=dev, generator=g)
+    first = photometric_bwd(pred, targ, gout)
+    assert torch.equal(first, photometric_bwd(pred, targ, gout))
+    # even W, but each tensor starts one value into its buffer: the kernels
+    # load single values there instead of float2 pairs
+    shifted = [torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape) for t in
+               (pred, targ, gout)]
+    for a, b in zip(shifted, (pred, targ, gout)):
+        a.copy_(b)
+    torch.testing.assert_close(photometric_fwd(*shifted[:2]), photometric_fwd(pred, targ),
+                               atol=1e-6, rtol=0)
+    torch.testing.assert_close(photometric_bwd(*shifted), first,
+                               atol=1e-6 * first.abs().max().item(), rtol=0)
 
 
 def test_new_kernels_launch_on_the_current_stream(dev):
