@@ -80,6 +80,21 @@ Phases, each fatal on failure:
              T=10, 640x192, bf16) for v10 and v9 with the checkpointing
              that --gru_remat auto picks there, and v10 without it: ms per
              step (two after one warm-up) and peak memory
+ 19. kitti train   a KITTI raw tree written at KITTI's sizes (1242x375
+             JPEGs of a moving texture, 120,000-point velodyne scans, calib
+             files, eigen_zhou-style lists under $SSDE_SPLITS_DIR): the
+             loader's items/s from the JPEGs and from a warm --decoded_cache;
+             scripts/train_dpt.main (monodepth2, B=12, bf16) and
+             scripts/train_gru.main (v10, B=8, T=3, bf16) for an epoch each on
+             it: finite losses, changed parameters, the 7 depth metrics of
+             val(), the kernels launched, weights_0/ with its .pth files and
+             models/opt.json; a trainer built on weights_0 bit-identical to
+             the saved one, Adam's step count included, and one further step
+             from each within phase 8's tolerance; the KITTI mono step's ms
+             and idle share beside phase 9's synthetic one, the GRU step's
+             ms, and the seconds of save_model and load_model;
+             --matmul_precision float32 turning both TF32 switches off and
+             default leaving them
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, each with its launches on the main path (for
@@ -102,6 +117,7 @@ import copy
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -316,6 +332,7 @@ def main() -> None:
     launch_counts = mono_slice(dev)
     mono_card_vs_cpu(dev)
     times = mono_times(dev, card)
+    mono_step_ms = times.pop("train_step_ms")
     for name, src, rep in (("warp_family_fwd", "ssde_tpu_torch/csrc/warp_family.cu",
                             "ssde_tpu/ops/pallas/warp_banded.py:64"),
                            ("photometric_fwd", "ssde_tpu_torch/csrc/photometric.cu",
@@ -358,6 +375,7 @@ def main() -> None:
                          "launches": launch_counts[name] + serve_counts.get(name, 0),
                          "max_abs_err": errs[name], **times[name]}
     default_size_steps(dev, card)
+    kitti_train(dev, card, mono_step_ms)
     print(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s [{card}]")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -985,6 +1003,7 @@ def mono_times(dev, card):
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
         if not np.isfinite(last):
             fail(f"mono train step B={B}: loss {last}")
+        times.setdefault("train_step_ms", {})[B] = ms
         if B == BENCH_B:
             table = prof.key_averages().table(sort_by="device_time_total", row_limit=25)
             os.makedirs("chiprun_out", exist_ok=True)
@@ -2037,6 +2056,365 @@ def default_size_steps(dev, card):
         del trainer, batch, out
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ============================================================ KITTI training
+
+KITTI_DRIVE = "2011_09_26/2011_09_26_drive_0001_sync"
+KITTI_FRAMES, KITTI_POINTS = 56, 120_000  # frames of the drive; points a scan (HDL-64E)
+KITTI_MONO_STEPS = 4
+# the calibration of 2011_09_26 (cam 2 and 3 projections, velodyne to camera)
+CAM_TO_CAM = """S_rect_02: 1.242000e+03 3.750000e+02
+R_rect_00: 9.999239e-01 9.837760e-03 -7.445048e-03 -9.869795e-03 9.999421e-01 -4.278459e-03 7.402527e-03 4.351614e-03 9.999631e-01
+P_rect_02: 7.215377e+02 0.000000e+00 6.095593e+02 4.485728e+01 0.000000e+00 7.215377e+02 1.728540e+02 2.163791e-01 0.000000e+00 0.000000e+00 1.000000e+00 2.745884e-03
+P_rect_03: 7.215377e+02 0.000000e+00 6.095593e+02 -3.395242e+02 0.000000e+00 7.215377e+02 1.728540e+02 2.199936e+00 0.000000e+00 0.000000e+00 1.000000e+00 2.729905e-03
+"""
+VELO_TO_CAM = """R: 7.533745e-03 -9.999714e-01 -6.166020e-04 1.480249e-02 7.280733e-04 -9.998902e-01 9.998621e-01 7.523790e-03 1.480755e-02
+T: -4.069766e-03 -7.631618e-02 -2.717806e-01
+"""
+
+
+def write_kitti_tree(root):
+    """A KITTI raw drive at KITTI's sizes under ``root``/kitti, and the lists
+    under ``root``/splits (eigen_zhou): each camera's frames are crops of one
+    wide texture of smooth blobs that slide 6 pixels a frame (the right
+    camera 40 pixels over), each scan 120,000 points in front of the car.
+    Returns (data path, splits dir, the mono train lines)."""
+    from PIL import Image
+
+    rs = np.random.RandomState(SEED)
+    w, h, step = 1242, 375, 6
+    coarse = rs.rand(h // 25 + 2, (w + step * KITTI_FRAMES + 40) // 25 + 2, 3)
+    big = np.asarray(Image.fromarray((coarse * 255).astype(np.uint8)).resize(
+        (coarse.shape[1] * 25, coarse.shape[0] * 25), Image.BICUBIC), np.float32)
+    fine = rs.rand(*big.shape[:2], 1).astype(np.float32) * 48  # texture inside the blobs
+    canvas = np.clip(big * 0.8 + fine, 0, 255).astype(np.uint8)[:h]
+    data = os.path.join(root, "kitti")
+    for cam, off in (("image_02", 0), ("image_03", 40)):
+        d = os.path.join(data, KITTI_DRIVE, cam, "data")
+        os.makedirs(d)
+        for i in range(KITTI_FRAMES):
+            x = off + step * i
+            Image.fromarray(canvas[:, x:x + w]).save(os.path.join(d, f"{i:010d}.jpg"),
+                                                     quality=90)
+    d = os.path.join(data, KITTI_DRIVE, "velodyne_points", "data")
+    os.makedirs(d)
+    for i in range(KITTI_FRAMES):
+        pts = np.empty((KITTI_POINTS, 4), np.float32)
+        pts[:, 0] = rs.uniform(2, 80, KITTI_POINTS)        # forward
+        pts[:, 1] = rs.uniform(-25, 25, KITTI_POINTS)      # left
+        pts[:, 2] = rs.uniform(-1.8, 2.0, KITTI_POINTS)    # up
+        pts[:, 3] = rs.rand(KITTI_POINTS)                  # reflectance
+        pts.tofile(os.path.join(d, f"{i:010d}.bin"))
+    with open(os.path.join(data, "2011_09_26", "calib_cam_to_cam.txt"), "w") as f:
+        f.write(CAM_TO_CAM)
+    with open(os.path.join(data, "2011_09_26", "calib_velo_to_cam.txt"), "w") as f:
+        f.write(VELO_TO_CAM)
+    splits = os.path.join(root, "splits", "eigen_zhou")
+    os.makedirs(splits)
+    train = [f"{KITTI_DRIVE} {i} l" for i in range(1, 1 + MONO_B * KITTI_MONO_STEPS)]
+    val = [f"{KITTI_DRIVE} {i} {'lr'[i // 4 % 2]}" for i in range(2, KITTI_FRAMES - 1, 4)]
+    for name, lines in (("train_files", train), ("val_files", val),
+                        ("train_sequences", [KITTI_DRIVE]), ("val_sequences", [KITTI_DRIVE])):
+        with open(os.path.join(splits, f"{name}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return data, os.path.dirname(splits), train
+
+
+class _Observed:
+    """Records, while in use, what a trainer class's ``train`` started
+    from (every parameter and statistic), the losses of each ``run_epoch``
+    and the scalars of each ``val``."""
+
+    def __init__(self, cls):
+        self.cls, self.start, self.history, self.vals = cls, None, [], []
+
+    def __enter__(self):
+        cls, obs = self.cls, self
+        self.saved = {k: cls.__dict__.get(k) for k in ("train", "run_epoch", "val")}
+        train, run_epoch, val = cls.train, cls.run_epoch, cls.val
+
+        def observed_train(trainer):
+            obs.start = [p.detach().clone() for p in trainer.models.parameters()]
+            return train(trainer)
+
+        def observed_run_epoch(trainer):
+            h = run_epoch(trainer)
+            obs.history += [{k: float(v) for k, v in d.items()} for d in h]
+            return h
+
+        def observed_val(trainer):
+            out = val(trainer)
+            obs.vals.append(out)
+            return out
+
+        cls.train, cls.run_epoch, cls.val = observed_train, observed_run_epoch, observed_val
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                delattr(self.cls, k)
+            else:
+                setattr(self.cls, k, v)
+
+
+def _trainer_tensors(trainer):
+    """Every parameter and buffer (BatchNorm statistics and counts) of the
+    trainer's modules, by name, on the host."""
+    return {f"{i}.{k}": v.detach().cpu().clone()
+            for i, m in enumerate(trainer.models.modules())
+            for k, v in m.state_dict().items()}
+
+
+def _adam_steps(trainer):
+    return sorted({int(s["step"]) for s in trainer.state.optimizer.state.values()})
+
+
+def _kitti_trainer_run(name, cls, main, argv, want_files, want_launches, card):
+    """One trainer's epoch on the tree through its entry point's main():
+    the checks of phase 19 up to the reload. Returns (trainer, weights_0)."""
+    import torch
+
+    counters = _gru_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Observed(cls) as obs:
+        trainer = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    steps = len(obs.history)
+    print(f"kitti {name}: main() {wall:.1f} s (build, an epoch of {steps} steps, "
+          f"{len(obs.vals)} val(), save): losses "
+          + " ".join(f"{h['loss']:.5f}" for h in obs.history)
+          + f"; launches {launched} [{card}]")
+    if not steps or not all(np.isfinite(v) for h in obs.history for v in h.values()):
+        fail(f"kitti {name}: {steps} steps, or a loss is not finite")
+    missing = [k for k in want_launches if not launched.get(k)]
+    if missing:
+        fail(f"kitti {name}: kernels of the path never launched: {missing}")
+    unchanged = [i for i, (a, p) in enumerate(zip(obs.start, trainer.models.parameters()))
+                 if torch.equal(a, p)]
+    print(f"kitti {name}: {len(obs.start) - len(unchanged)} of {len(obs.start)} trained "
+          "parameters changed" + (f"; unchanged: {unchanged}" if unchanged else ""))
+    if unchanged:
+        fail(f"kitti {name}: some parameters did not change")
+    if not obs.vals:
+        fail(f"kitti {name}: val() never ran")
+    from ssde_tpu_torch.train.trainer import DEPTH_METRICS
+
+    for v in obs.vals:
+        print(f"kitti {name}: val " + " ".join(f"{k} {v[k]:.5f}" for k in DEPTH_METRICS
+                                               if k in v))
+        if not all(k in v and np.isfinite(v[k]) for k in DEPTH_METRICS):
+            fail(f"kitti {name}: val() did not give the 7 finite depth metrics: {v}")
+    folder = os.path.join(trainer.log_path, "models", "weights_0")
+    files = sorted(os.listdir(folder)) if os.path.isdir(folder) else []
+    opt_json = os.path.join(trainer.log_path, "models", "opt.json")
+    print(f"kitti {name}: {folder}: {files}; opt.json {os.path.isfile(opt_json)}")
+    if files != sorted(want_files) or not os.path.isfile(opt_json):
+        fail(f"kitti {name}: weights_0 holds {files}, expected {sorted(want_files)} "
+             "and models/opt.json")
+    return trainer, folder
+
+
+def _kitti_reload(name, build_trainer, parse, argv, trainer, folder, card):
+    """A trainer built on ``folder`` against the saved one: bit-identical
+    modules and Adam step count; then one further step from each on one
+    batch, held at phase 8's tolerance (loss 1e-4 relative; each tensor's
+    update 1e-3 of its largest)."""
+    import torch
+
+    from ssde_tpu_torch.train.trainer import device_batch
+
+    t0 = time.perf_counter()
+    trainer.epoch = 1
+    extra = trainer.save_model()
+    save_s = time.perf_counter() - t0
+    shutil.rmtree(extra)
+    reloaded = build_trainer(parse(argv + ["--load_weights_folder", folder]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reloaded.load_model()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    a, b = _trainer_tensors(trainer), _trainer_tensors(reloaded)
+    for i, (sa, sb) in enumerate(zip(trainer.state.optimizer.state.values(),
+                                     reloaded.state.optimizer.state.values())):
+        a.update({f"adam.{i}.{k}": v.detach().cpu() for k, v in sa.items()})
+        b.update({f"adam.{i}.{k}": v.detach().cpu() for k, v in sb.items()})
+    differ = [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+    steps = (trainer.state.step, reloaded.state.step, _adam_steps(trainer), _adam_steps(reloaded))
+    print(f"kitti {name}: save_model {save_s:.3f} s, load_model {load_s:.3f} s [{card}]; "
+          f"reloaded: {len(a) - len(differ)} of {len(a)} tensors bit-identical; Adam steps "
+          f"{steps[0]} / {steps[1]} (per parameter {steps[2]} / {steps[3]})")
+    if differ or a.keys() != b.keys() or steps[0] != steps[1] or steps[2] != steps[3]:
+        fail(f"kitti {name}: the reloaded trainer differs: {differ[:5]}, steps {steps}")
+    from ssde_tpu_torch.data.pipeline import collate
+
+    host = collate([trainer.train_dataset[i] for i in range(trainer.opt.batch_size)])
+    # the further step in float32 with TF32 off: under bf16 autocast the card's
+    # own spread between two runs of one step from one state (atomics in the
+    # upsampling backwards, bf16 rounding after them) reaches 1.3e-2 of a
+    # BatchNorm bias gradient's largest, above phase 8's tolerance
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    runs = []
+    for t in (trainer, trainer, reloaded):  # the saved state twice: the card's own spread
+        models, state = copy.deepcopy((t.models, t.state))
+        models.opts.compute_dtype = "float32"
+        gen = torch.Generator(trainer.device).manual_seed(SEED)
+        out = t.step_fn(models, state, device_batch(host, trainer.device), gen)
+        trained = {id(p) for p in models.parameters()}
+        named = [(f"{i}.{k}", p) for i, m in enumerate(models.modules())
+                 for k, p in m.named_parameters() if id(p) in trained]
+        runs.append((float(out["loss"]), {k: p.grad.detach().clone() for k, p in named},
+                     {k: p.detach().clone() for k, p in named}))
+        del models, state, out
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def worst(x, y):
+        """The largest difference of a tensor, over its largest value, and
+        the tensor's name."""
+        return max((((x[k] - y[k]).abs().max() / x[k].abs().max()).item(), k)
+                   for k in x if x[k].abs().max() > 0)
+
+    for label, j in (("saved vs saved", 1), ("saved vs reloaded", 2)):
+        rel = abs(runs[0][0] - runs[j][0]) / abs(runs[0][0])
+        g, p = worst(runs[0][1], runs[j][1]), worst(runs[0][2], runs[j][2])
+        print(f"kitti {name}: the further step in float32, {label}: loss {runs[0][0]:.6f} / "
+              f"{runs[j][0]:.6f} ({rel:.2e} relative); worst gradient difference {g[0]:.2e} "
+              f"of its tensor's largest ({g[1]}), parameter {p[0]:.2e} ({p[1]})")
+    if not (rel <= TOL_STEP_LOSS and g[0] <= TOL_STEP_GRAD and p[0] <= TOL_STEP_GRAD):
+        fail(f"kitti {name}: the resumed step disagrees")
+    del reloaded
+
+
+def _loader_rate(dataset, workers, passes=1):
+    """items/s of ``passes`` passes of the port's Loader over ``dataset``."""
+    from ssde_tpu_torch.data.pipeline import Loader
+
+    loader = Loader(dataset, MONO_B, shuffle=True, drop_last=True, num_workers=workers)
+    t0 = time.perf_counter()
+    n = 0
+    for _ in range(passes):
+        for batch in loader:
+            n += len(batch["K"])
+    return n / (time.perf_counter() - t0)
+
+
+def kitti_train(dev, card, mono_step_ms):
+    """Phase 19: both trainers on a KITTI raw tree at KITTI's sizes."""
+    import tempfile
+
+    import torch
+
+    from ssde_tpu_torch.config import MonodepthOptions
+    from ssde_tpu_torch.data.kitti import KITTIRAWDataset
+    from ssde_tpu_torch.native import get_lib
+    from ssde_tpu_torch.scripts import train_dpt, train_gru
+    from ssde_tpu_torch.train.trainer import Trainer
+    from ssde_tpu_torch.train.trainer_gru import GRUTrainer
+
+    torch.backends.cudnn.allow_tf32 = True  # the training configuration
+    root = tempfile.mkdtemp(prefix="ssde_kitti_")
+    try:
+        t0 = time.perf_counter()
+        data, splits, train_lines = write_kitti_tree(root)
+        print(f"kitti tree: {KITTI_FRAMES} frames a camera at 1242x375, {KITTI_POINTS} points "
+              f"a scan, written in {time.perf_counter() - t0:.1f} s")
+        os.environ["SSDE_SPLITS_DIR"] = splits
+        parse = MonodepthOptions().parse
+        opts = parse([])
+        ids = [0, -1, 1]
+        t0 = time.perf_counter()
+        get_lib()  # g++ builds the velodyne projection at its first use
+        print(f"velodyne projection library: {time.perf_counter() - t0:.2f} s")
+        plain = KITTIRAWDataset(data, train_lines, H, W, ids, is_train=True)
+        plain[0]
+        cold = _loader_rate(plain, opts.num_workers, passes=2)
+        cache = os.path.join(root, "decoded")
+        cached = KITTIRAWDataset(data, train_lines, H, W, ids, is_train=True,
+                                 decoded_cache=cache)
+        first = _loader_rate(cached, opts.num_workers)
+        warm = _loader_rate(cached, opts.num_workers, passes=2)
+        print(f"kitti loader (Loader, {opts.num_workers} threads on {os.cpu_count()} cores, "
+              f"B={MONO_B}, frames [0, -1, 1] at {H}x{W} and depth_gt a item): JPEGs "
+              f"{cold:.1f} items/s; --decoded_cache first pass {first:.1f}, warm {warm:.1f} "
+              f"items/s [{card}]")
+
+        # ---- the mono trainer
+        log = os.path.join(root, "log")
+        argv = ["--model", "monodepth2", "--data_path", data, "--num_epochs", "1",
+                "--log_frequency", "2", "--mono_pretrained", "0", "--log_dir", log]
+        o = parse(argv)
+        if (o.batch_size, o.height, o.width, o.compute_dtype, o.save_frequency) != (
+                MONO_B, H, W, "bfloat16", 1):
+            fail(f"unexpected Options defaults {o}")
+        trainer, folder = _kitti_trainer_run(
+            "mono", Trainer, train_dpt.main, argv,
+            ["encoder.pth", "depth.pth", "pose_encoder.pth", "pose.pth", "adam.pth"],
+            ["warp_family_fwd", "photometric_fwd", "photometric_bwd"], card)
+        _kitti_reload("mono", train_dpt.build_trainer, parse, argv, trainer, folder, card)
+        # the loader-fed step: an unprofiled epoch on the host clock, then a
+        # profiled one for the device's busy time (val() left out of both)
+        trainer.val = lambda: {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = len(trainer.run_epoch())
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n
+        busy, wall, _ = _device_idle_share(trainer.run_epoch, 1)
+        print(f"kitti mono step B={MONO_B} {H}x{W} bf16, fed by the loader from JPEGs: "
+              f"{step_ms:.1f} ms a step over an epoch of {n} (host clock); device busy "
+              f"{busy / n:.1f} ms a step: idle share {1 - busy / (n * step_ms):.1%}; phase 9's "
+              f"synthetic step (one batch on the card, no loader) {mono_step_ms[MONO_B]:.1f} "
+              f"ms [{card}]")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # ---- the GRU trainer
+        argv = ["--gru_version", "v10", "--data_path", data, "--batch_size", str(GRU_B),
+                "--len_sequence", str(GRU_T), "--num_epochs", "1", "--train_n_tuples", "1",
+                "--test_n_tuples", "1", "--mono_pretrained", "0", "--log_dir", log,
+                "--model_name", "gru"]
+        trainer, folder = _kitti_trainer_run(
+            "gru v10", GRUTrainer, train_gru.main, argv,
+            ["encoder.pth", "depth.pth", "pose_encoder.pth", "pose.pth", "gru.pth", "adam.pth"],
+            ["conv3x3_fwd", "conv3x3_dx", "conv3x3_dw", "warp_family_fwd", "photometric_fwd",
+             "photometric_bwd"], card)
+        _kitti_reload("gru v10", train_gru.build_trainer, parse, argv, trainer, folder, card)
+        trainer.val = lambda: {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = len(trainer.run_epoch())
+        torch.cuda.synchronize()
+        print(f"kitti gru v10 step B={GRU_B} T={GRU_T} {H}x{W} bf16, fed by the loader: "
+              f"{(time.perf_counter() - t0) * 1e3 / n:.1f} ms a step over an epoch of {n} "
+              f"(host clock) [{card}]")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # ---- --matmul_precision
+        for value, want in (("float32", False), ("highest", False), ("default", True)):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            train_dpt.build_trainer(parse(["--model", "monodepth2", "--data_path", data,
+                                           "--log_dir", log, "--matmul_precision", value,
+                                           "--mono_pretrained", "0"]))
+            got = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+            print(f"kitti: --matmul_precision {value}: cudnn.allow_tf32, "
+                  f"cuda.matmul.allow_tf32 = {got}")
+            if got != (want, want):
+                fail(f"--matmul_precision {value} left the TF32 switches at {got}")
+    finally:
+        os.environ.pop("SSDE_SPLITS_DIR", None)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
 
 
 if __name__ == "__main__":

@@ -10,12 +10,23 @@ kernels HWIO -> OIHW, ``h0`` (1, H, W, C) -> (1, C, H, W), BatchNorm
 ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/``running_mean``/
 ``running_var``. Trees are nested dicts of numpy arrays; nothing here
 imports flax.
+
+The folder layout is the reference's (``ssde_tpu/checkpoint.py:3-8``,
+reference trainer.py:711-763): ``weights_<epoch>/`` holds one ``.pth``
+state dict per module (``encoder``, ``depth``, ``pose_encoder``, ``pose``,
+``gru``, ``head``), ``encoder.pth`` also carries the ``height``, ``width``
+and ``use_stereo`` entries, and ``adam.pth`` the optimizer's state dict.
+:func:`save_folder` writes it, :func:`load_folder` reads it; one module's
+file is read by :func:`read_module` and loaded strictly, so a file whose
+keys or shapes do not match raises. A missing file is skipped, as the
+reference's ``load_model`` skips it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping
+import warnings
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -153,32 +164,112 @@ def load_depth(decoder: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> None
                        f"unexpected {res.unexpected_keys}")
 
 
-def _load_pth(path: str) -> StateDict:
+# the module files of a folder, in the reference's order, and the entries
+# that encoder.pth carries beside its weights
+MODULE_NAMES = ("encoder", "depth", "pose_encoder", "pose", "gru", "head")
+ENCODER_META = ("height", "width", "use_stereo")
+
+
+def _load_pth(path: str):
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_reference_folder(folder: str, models) -> Dict[str, int]:
-    """Load a reference-format folder ({encoder,depth,gru}.pth) into
-    ``models`` (a :class:`ssde_tpu_torch.train.steps_gru.GRUModels`).
+def _cpu(obj):
+    """``obj`` with every tensor detached and on the CPU (dicts and lists
+    walked), so that a folder saved on the card loads anywhere."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu(v) for v in obj)
+    return obj
 
-    The encoder's embedded ``height``/``width``/``use_stereo`` entries are
-    returned, not loaded (reference trainer.py:717-721); its classifier
-    (``encoder.fc.*``) is dropped. Missing files are skipped, as the
-    reference's load_model does.
-    """
+
+def read_module(path: str) -> Tuple[StateDict, Dict[str, int]]:
+    """One module's ``.pth``: (state dict, embedded entries). The encoder's
+    ``height``/``width``/``use_stereo`` are returned, not loaded (reference
+    trainer.py:717-721), and its classifier (``encoder.fc.*``) is dropped."""
+    sd = _load_pth(path)
+    meta = {k: int(sd.pop(k)) for k in ENCODER_META if k in sd}
+    return {k: v for k, v in sd.items() if not k.startswith("encoder.fc.")}, meta
+
+
+def load_folder(folder: str, models, names: Sequence[str] = MODULE_NAMES
+                ) -> Tuple[Dict[str, int], List[str]]:
+    """Load ``<folder>/<name>.pth`` into ``models.<name>`` for each of
+    ``names`` that the bundle has (``MonoModels`` or ``GRUModels``); a
+    missing file is skipped. Returns (the encoder's embedded entries, the
+    names loaded). Strict: a key or shape that does not match raises (the
+    depth decoder may lack its dispconv heads, :func:`load_depth`)."""
     meta: Dict[str, int] = {}
-    path = os.path.join(folder, "encoder.pth")
-    if os.path.exists(path):
-        sd = _load_pth(path)
-        for k in ("height", "width", "use_stereo"):
-            if k in sd:
-                meta[k] = int(sd.pop(k))
-        sd = {k: v for k, v in sd.items() if not k.startswith("encoder.fc.")}
-        models.encoder.load_state_dict(sd)
-    path = os.path.join(folder, "depth.pth")
-    if os.path.exists(path):
-        load_depth(models.depth, _load_pth(path))
-    path = os.path.join(folder, "gru.pth")
-    if os.path.exists(path):
-        models.gru.load_state_dict(_load_pth(path))
-    return meta
+    loaded = []
+    for name in names:
+        module = getattr(models, name, None)
+        path = os.path.join(folder, f"{name}.pth")
+        if module is None or not os.path.exists(path):
+            continue
+        sd, m = read_module(path)
+        meta.update(m)
+        if name == "depth":
+            load_depth(module, sd)
+        else:
+            module.load_state_dict(sd)
+        loaded.append(name)
+    return meta, loaded
+
+
+def load_reference_folder(folder: str, models) -> Dict[str, int]:
+    """Load a reference-format serving folder ({encoder,depth,gru}.pth) into
+    ``models`` (a :class:`ssde_tpu_torch.train.steps_gru.GRUModels`);
+    returns the encoder's embedded entries."""
+    return load_folder(folder, models, ("encoder", "depth", "gru"))[0]
+
+
+def save_folder(folder: str, models, optimizer=None, *, height: int, width: int,
+                use_stereo: bool = False) -> None:
+    """Write every module of ``models`` that exists as ``<name>.pth`` (CPU
+    tensors), the encoder with its embedded entries, and the optimizer's
+    state dict as ``adam.pth``."""
+    os.makedirs(folder, exist_ok=True)
+    for name in MODULE_NAMES:
+        module = getattr(models, name, None)
+        if module is None:
+            continue
+        sd = _cpu(module.state_dict())
+        if name == "encoder":
+            sd.update(height=height, width=width, use_stereo=use_stereo)
+        torch.save(sd, os.path.join(folder, f"{name}.pth"))
+    if optimizer is not None:
+        torch.save(_cpu(optimizer.state_dict()), os.path.join(folder, "adam.pth"))
+
+
+def _adam_mismatch(sd, optimizer) -> str:
+    """Why ``sd`` does not fit ``optimizer`` ('' when it does): the number
+    of groups and parameters, and each moment's shape against its
+    parameter's (``load_state_dict`` checks only the counts)."""
+    groups = sd.get("param_groups", [])
+    if len(groups) != len(optimizer.param_groups):
+        return f"{len(groups)} parameter groups, the optimizer has {len(optimizer.param_groups)}"
+    for g_sd, g in zip(groups, optimizer.param_groups):
+        if len(g_sd["params"]) != len(g["params"]):
+            return f"{len(g_sd['params'])} parameters, the optimizer has {len(g['params'])}"
+        for idx, p in zip(g_sd["params"], g["params"]):
+            for k, v in sd["state"].get(idx, {}).items():
+                if k != "step" and tuple(v.shape) != tuple(p.shape):
+                    return f"{k} of parameter {idx} is {tuple(v.shape)}, not {tuple(p.shape)}"
+    return ""
+
+
+def load_adam(path: str, optimizer) -> bool:
+    """Load ``adam.pth`` into ``optimizer``. If it does not fit, warn and
+    keep the fresh moments (``ssde_tpu/checkpoint.py:85-99``); returns
+    whether it loaded."""
+    sd = _load_pth(path)
+    why = _adam_mismatch(sd, optimizer)
+    if why:
+        warnings.warn(f"{path} does not match the optimizer ({why}); "
+                      "optimizer state freshly initialized")
+        return False
+    optimizer.load_state_dict(sd)
+    return True

@@ -1,3 +1,3 @@
 """The port's data path: numpy copies of the JAX package's host-side data
-code (``kitti``, ``synthetic``, ``pipeline``) and the device-side
-preprocessing (``transforms``)."""
+code (``splits``, ``kitti_utils``, ``kitti``, ``sequence``, ``synthetic``,
+``pipeline``) and the device-side preprocessing (``transforms``)."""

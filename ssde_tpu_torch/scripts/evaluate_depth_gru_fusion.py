@@ -29,12 +29,12 @@ import torch
 
 from ..checkpoint import load_reference_folder
 from ..config import MonodepthOptions, Options
+from ..data.kitti import pil_load_resized
+from ..data.splits import split_file
 from ..eval.depth import evaluate_depth_predictions
 from ..eval.gru_runners import GRUStreamEvaluator
 from ..ops.geometry import disp_to_depth
 from ..train.steps_gru import build_gru_models
-
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # (position in the test list, warm-up frames, test image), frames (1, H, W, 3)
 Item = Tuple[int, List[np.ndarray], np.ndarray]
@@ -104,26 +104,13 @@ def predict_scenes(ev: GRUStreamEvaluator, scenes: Sequence[Sequence[np.ndarray]
     return out
 
 
-def _split_file(split: str, which: str) -> str:
-    """splits/<split>/<which>_files.txt (ssde_tpu/data/splits.py:26-42)."""
-    d = os.environ.get("SSDE_SPLITS_DIR") or os.path.join(_REPO, "splits")
-    cand = os.path.join(d, split, f"{which}_files.txt")
-    alt = os.path.join(d, split, f"{which}.txt")
-    return alt if not os.path.exists(cand) and os.path.exists(alt) else cand
-
-
 def _load_frame(opt: Options, folder: str, idx: int):
     """(1, H, W, 3) float32 KITTI frame, or None when it does not exist."""
-    from PIL import Image  # only the KITTI reader needs PIL
-
     ext = ".png" if opt.png else ".jpg"
-    path = os.path.join(opt.data_path, folder,
-                        "image_02/data/{:010d}{}".format(idx, ext))
+    path = os.path.join(opt.data_path, folder, "image_02/data/{:010d}{}".format(idx, ext))
     if not os.path.exists(path):
         return None
-    with Image.open(path) as img:
-        img = img.convert("RGB").resize((opt.width, opt.height), Image.LANCZOS)
-        return (np.asarray(img, dtype=np.float32) / 255.0)[None]
+    return pil_load_resized(path, opt.width, opt.height, False)[None]
 
 
 def main(argv=None):
@@ -147,7 +134,7 @@ def main(argv=None):
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")
 
-    split = _split_file(opt.eval_split, "test")
+    split = split_file(opt.eval_split, "test")
     with open(split) as f:
         filenames = f.read().splitlines()
     gt_dir = os.path.dirname(split)

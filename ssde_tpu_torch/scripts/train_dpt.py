@@ -3,13 +3,16 @@
 ``scripts/train_dpt.py``).
 
 Run: python -m ssde_tpu_torch.scripts.train_dpt --model monodepth2
-       --synthetic_data --num_epochs 1 --save_frequency 2 [Options flags]
+       --data_path <KITTI raw tree> [--split eigen_zhou] [Options flags]
 
 Only ``monodepth2`` is ported: the mono self-supervised trainer (ResNet
 depth and pose encoders, frames [0, -1, 1], scales 0-3, bf16 autocast by
-default). The other models raise ``NotImplementedError`` naming the slice
-of the port that brings them. Checkpoints are not written yet, so a run
-must end before its first save (``--save_frequency`` > ``--num_epochs``).
+default) on a KITTI raw or odometry tree (``--dataset``), or on
+``--synthetic_data``. Every ``--save_frequency`` epochs it writes
+``<log_dir>/<model_name>/models/weights_<epoch>/`` (one ``.pth`` per
+module and ``adam.pth``); ``--load_weights_folder`` resumes from such a
+folder. The other models raise ``NotImplementedError`` naming the slice of
+the port that brings them.
 """
 
 from __future__ import annotations

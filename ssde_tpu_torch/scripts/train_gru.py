@@ -2,14 +2,16 @@
 """Recurrent (GRU) sequence training on the GPU (counterpart of
 ``scripts/train_gru.py``).
 
-Run: python -m ssde_tpu_torch.scripts.train_gru --gru_version v9
-       --synthetic_data --num_epochs 1 --save_frequency 2 [Options flags]
+Run: python -m ssde_tpu_torch.scripts.train_gru --gru_version v10
+       --data_path <KITTI raw tree> [--len_sequence 3] [Options flags]
 
 GRU v9 (attention fusion; ``--disable_attention`` for conv units) or v10
 (ResNet18 depth and pose encoders, frames [0, -1, 1], bf16 autocast by
-default), on the card unless ``--no_cuda``; the other versions raise
-``NotImplementedError`` naming the slice of the port that brings them. Checkpoints are not written yet, so a run must end before its first
-save (``--save_frequency`` > ``--num_epochs``).
+default), on the card unless ``--no_cuda``, over T-frame windows of the
+``--split``'s ``train_sequences`` scenes (or ``--synthetic_data``). It
+writes and reads ``weights_<epoch>/`` as the mono trainer does, with
+``gru.pth`` beside the mono modules. The other versions raise
+``NotImplementedError`` naming the slice of the port that brings them.
 """
 
 from __future__ import annotations

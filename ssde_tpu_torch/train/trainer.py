@@ -2,20 +2,24 @@
 ``TrainerBase`` and ``Trainer``, :55-392).
 
 An epoch loop around :func:`ssde_tpu_torch.train.steps.train_step`: the
-loader collates numpy batches in worker threads, each batch goes to the
-device from pinned memory, and at the JAX trainer's logging points the
-loss line is printed and :meth:`TrainerBase.val` runs one validation
-batch (loss only). There is no TensorBoard writer, mesh or
-``device_prefetch`` yet.
+loader decodes KITTI items from ``--data_path`` (``--dataset`` kitti,
+kitti_odom or kitti_depth, the ``--split`` lists; ``--synthetic_data`` for
+the hermetic generator) and collates numpy batches in worker threads, and
+each batch goes to the device from pinned memory. At the JAX trainer's
+logging points the loss line is printed and :meth:`TrainerBase.val` runs
+one validation batch: its losses and, where the batch has velodyne ground
+truth, the 7 depth metrics (:func:`depth_metrics`). Every
+``--save_frequency`` epochs :meth:`TrainerBase.save_model` writes
+``<log_dir>/<model_name>/models/weights_<epoch>/`` in the reference's
+per-module ``.pth`` layout (:mod:`ssde_tpu_torch.checkpoint`);
+``--load_weights_folder`` with ``--models_to_load`` reads one back, and
+``--mono_pretrained`` warm-starts from ``models/mono_640x192`` where that
+folder exists. ``--matmul_precision float32`` (or ``highest``) turns TF32
+off for cuDNN and cuBLAS, process-wide. There is no TensorBoard writer,
+mesh or ``device_prefetch`` yet.
 
 The port's warp is exact, so it reports no ``warp/band_violation`` and the
 JAX trainer's ``_check_band_violation`` guard has nothing to check.
-Checkpoints in the reference's per-module ``.pth`` layout (``save_model``,
-``load_model``) and the depth-metric ``val`` belong to the next training
-slice: until then :meth:`TrainerBase.train` refuses a run whose epochs
-would reach ``save_model``, and the trainers refuse the weights the JAX
-trainers would load (:func:`refuse_weights_to_load`) rather than train
-from a random initialisation instead.
 """
 
 from __future__ import annotations
@@ -24,14 +28,25 @@ import os
 import time
 from typing import Dict, List
 
+import numpy as np
 import torch
 
+from .. import checkpoint
 from ..config import Options
+from ..data.kitti import KITTIDepthDataset, KITTIOdomDataset, KITTIRAWDataset
 from ..data.pipeline import Loader, to_device
+from ..data.splits import readlines, split_file
 from ..data.synthetic import SyntheticKittiDataset
 from ..data.transforms import preprocess_batch
+from ..eval.depth import _resize_bilinear_np, compute_errors
 from .state import TrainState
 from .steps import build_mono_models, check_supported, mono_loss_fn, train_step
+
+# train-time GT crop (garg) rows/cols of 375x1242 (reference trainer.py:639-640)
+GARG_CROP = (153, 371, 44, 1197)
+DEPTH_METRICS = ("de/abs_rel", "de/sq_rel", "de/rms", "de/log_rms", "da/a1", "da/a2", "da/a3")
+# the monodepth2 warm start's folder, relative to the working directory
+MONO_PRETRAINED = os.path.join("models", "mono_640x192")
 
 
 def _hm(seconds: float) -> str:
@@ -52,22 +67,46 @@ def train_device(opt: Options, device=None) -> torch.device:
     return device
 
 
-def refuse_weights_to_load(opt: Options) -> None:
-    """Raise ``NotImplementedError`` naming the flag wherever the JAX
-    trainers load weights (``ssde_tpu/train/trainer.py:160-179``,
-    ``trainer_gru.py:125-149``): ``--load_weights_folder`` set, or
-    ``--mono_pretrained`` on with no folder while ``models/mono_640x192``
-    exists relative to the working directory. Loading is not ported yet."""
-    if opt.load_weights_folder is not None:
-        raise NotImplementedError(
-            f"--load_weights_folder {opt.load_weights_folder}: loading weights into the "
-            "trainers is not ported yet; leave it unset to train from a random "
-            "initialisation")
-    folder = os.path.join("models", "mono_640x192")
-    if opt.mono_pretrained and os.path.isdir(folder):
-        raise NotImplementedError(
-            f"--mono_pretrained: the monodepth2 warm start from {folder} is not ported "
-            "yet; pass --mono_pretrained 0 to train from a random initialisation")
+def apply_matmul_precision(opt: Options) -> None:
+    """``--matmul_precision`` (``ssde_tpu/train/trainer.py:72-74``):
+    ``float32`` and ``highest`` turn TF32 off for cuDNN convolutions and
+    cuBLAS matmuls, process-wide, so that float32 means float32 on the
+    card; ``default`` leaves torch's settings as they are."""
+    if opt.matmul_precision in ("float32", "highest"):
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def depth_metrics(depth_pred: np.ndarray, gt: np.ndarray) -> Dict[str, float]:
+    """The 7 depth metrics of (N, h, w) predicted depth against (N, H, W)
+    velodyne ground truth (``ssde_tpu/train/trainer.py:319-347``): each
+    prediction resized bilinearly to its ground truth, the Garg crop of
+    the valid pixels, the clip to [1e-3, 80], median scaling and the clip
+    again; the mean over the images with a valid pixel (none: {})."""
+    errors = []
+    for i in range(gt.shape[0]):
+        g = gt[i]
+        pred = _resize_bilinear_np(depth_pred[i], g.shape)
+        mask = g > 0
+        crop_mask = np.zeros_like(mask)
+        crop_mask[GARG_CROP[0]:GARG_CROP[1], GARG_CROP[2]:GARG_CROP[3]] = 1
+        mask = np.logical_and(mask, crop_mask)
+        if not mask.any():
+            continue
+        p = np.clip(pred[mask], 1e-3, 80)
+        gm = g[mask]
+        p *= np.median(gm) / np.median(p)
+        p = np.clip(p, 1e-3, 80)
+        errors.append(compute_errors(gm, p))
+    if not errors:
+        return {}
+    return {n: float(v) for n, v in zip(DEPTH_METRICS, np.mean(errors, axis=0))}
+
+
+def device_batch(host: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """The batch on the device without ``depth_gt``: the depth metrics read
+    the ground truth on the host, and no step uses it."""
+    return to_device({k: v for k, v in host.items() if k != "depth_gt"}, device)
 
 
 class TrainerBase:
@@ -80,11 +119,12 @@ class TrainerBase:
 
     def __init__(self, options: Options, device=None, seed: int = 0):
         self.opt = options
+        self.log_path = os.path.join(self.opt.log_dir, self.opt.model_name)
         assert self.opt.height % 32 == 0, "'height' must be a multiple of 32"
         assert self.opt.width % 32 == 0, "'width' must be a multiple of 32"
         assert self.opt.frame_ids[0] == 0, "frame_ids must start with 0"
         self.check_supported(self.opt)
-        refuse_weights_to_load(self.opt)
+        apply_matmul_precision(self.opt)
         self.device = train_device(self.opt, device)
         self.step = 0
         self.epoch = 0
@@ -93,23 +133,55 @@ class TrainerBase:
         self._build_models_and_state()
         self.num_total_steps = len(self.train_loader) * self.opt.num_epochs
         self.start_time = time.time()
+        self.opt.save(os.path.join(self._models_dir(), "opt.json"))
         print(f"Training model named: {self.opt.model_name}")
         print(f"Device: {self.device}"
               + (f" ({torch.cuda.get_device_name(self.device)})"
                  if self.device.type == "cuda" else ""))
 
+    def _models_dir(self) -> str:
+        """``<log_dir>/<model_name>/models``, made if missing."""
+        path = os.path.join(self.log_path, "models")
+        os.makedirs(path, exist_ok=True)
+        return path
+
     # ------------------------------------------------------------- data
+    def _frame_idxs(self):
+        """``--frame_ids``, and "s" under ``--use_stereo`` (reference
+        trainer.py:59-60): the data carry the opposite camera's frame,
+        though the step does not train on it yet."""
+        ids = list(self.opt.frame_ids)
+        if self.opt.use_stereo and "s" not in ids:
+            ids.append("s")
+        return ids
+
     def _build_data(self):
         opt = self.opt
-        if not opt.synthetic_data:
-            raise NotImplementedError(
-                "the KITTI datasets are not ported yet; pass --synthetic_data")
-        ids = list(opt.frame_ids)
-        self.train_dataset = SyntheticKittiDataset(
-            opt.height, opt.width, length=opt.batch_size * 8, frame_idxs=ids)
-        self.val_dataset = SyntheticKittiDataset(
-            opt.height, opt.width, length=opt.batch_size * 2, frame_idxs=ids,
-            is_train=False)
+        ids = self._frame_idxs()
+        if opt.synthetic_data:
+            self.train_dataset = SyntheticKittiDataset(
+                opt.height, opt.width, length=opt.batch_size * 8, frame_idxs=ids)
+            self.val_dataset = SyntheticKittiDataset(
+                opt.height, opt.width, length=opt.batch_size * 2, frame_idxs=ids,
+                is_train=False)
+        else:
+            # the reference's map has kitti and kitti_odom (trainer.py:139-141);
+            # the JAX trainer adds kitti_depth, the improved ground truth
+            ds_cls = {"kitti": KITTIRAWDataset, "kitti_odom": KITTIOdomDataset,
+                      "kitti_depth": KITTIDepthDataset}.get(opt.dataset, KITTIRAWDataset)
+            img_ext = ".png" if opt.png else ".jpg"
+            self.train_dataset = ds_cls(
+                opt.data_path, readlines(split_file(opt.split, "train")), opt.height,
+                opt.width, ids, is_train=True, img_ext=img_ext,
+                decoded_cache=opt.decoded_cache)
+            self.val_dataset = ds_cls(
+                opt.data_path, readlines(split_file(opt.split, "val")), opt.height,
+                opt.width, ids, is_train=False, img_ext=img_ext,
+                decoded_cache=opt.decoded_cache)
+        self._make_loaders()
+
+    def _make_loaders(self):
+        opt = self.opt
         self.train_loader = Loader(self.train_dataset, opt.batch_size, shuffle=True,
                                    drop_last=True, num_workers=opt.num_workers)
         self.val_loader = Loader(self.val_dataset, opt.batch_size, shuffle=False,
@@ -117,24 +189,38 @@ class TrainerBase:
         self._val_iter = None
 
     # ------------------------------------------------- models and state
+    def _build_models(self):
+        return build_mono_models(self.opt, self.device,
+                                 torch.Generator().manual_seed(self.seed))
+
+    def _scheduler_step_size(self) -> int:
+        return self.opt.scheduler_step_size
+
     def _build_models_and_state(self):
-        self.models = build_mono_models(self.opt, self.device,
-                                        torch.Generator().manual_seed(self.seed))
-        self.state = TrainState(self.models.parameters(), self.opt.learning_rate,
-                                self.opt.scheduler_step_size,
-                                max(1, len(self.train_loader)))
+        """Seeded models; the monodepth2 warm start where it applies
+        (``ssde_tpu/train/trainer.py:160-170``: ``--mono_pretrained``, no
+        folder to load, ``models/mono_640x192`` present: every module file
+        there that the trainer has); Adam; then ``--load_weights_folder``."""
+        opt = self.opt
+        self.models = self._build_models()
+        if opt.mono_pretrained and opt.load_weights_folder is None \
+                and os.path.isdir(MONO_PRETRAINED):
+            _, loaded = checkpoint.load_folder(MONO_PRETRAINED, self.models)
+            print(f"---> Load monodepth2 weights: {loaded} from {MONO_PRETRAINED}")
+        self.state = TrainState(self.models.parameters(), opt.learning_rate,
+                                self._scheduler_step_size(), max(1, len(self.train_loader)))
+        if opt.load_weights_folder is not None:
+            self.load_model()
 
     # ------------------------------------------------------------ train
     def train(self):
-        """``num_epochs`` epochs. Refused while any epoch would end in a
-        checkpoint (``--save_frequency`` <= ``--num_epochs``)."""
-        if self.opt.save_frequency <= self.opt.num_epochs:
-            raise NotImplementedError(
-                "save_model (the per-module .pth checkpoints) is not ported yet; "
-                "pass --save_frequency greater than --num_epochs")
+        """``num_epochs`` epochs, a checkpoint after every
+        ``--save_frequency``-th."""
         self.start_time = time.time()
         for self.epoch in range(self.opt.num_epochs):
             self.run_epoch()
+            if (self.epoch + 1) % self.opt.save_frequency == 0:
+                self.save_model()
 
     def run_epoch(self) -> List[Dict[str, torch.Tensor]]:
         """One pass over the training set; the losses of every step, on the
@@ -145,7 +231,7 @@ class TrainerBase:
         history = []
         for batch_idx, host in enumerate(self.train_loader):
             before = time.time()
-            losses = self.step_fn(self.models, self.state, to_device(host, self.device), gen)
+            losses = self.step_fn(self.models, self.state, device_batch(host, self.device), gen)
             history.append(losses)
             early_phase = batch_idx % self.opt.log_frequency == 0 and self.step < 2000
             if early_phase or self.step % 2000 == 0:
@@ -167,16 +253,15 @@ class TrainerBase:
     def process_batch(self, batch, generator=None):
         """Forward one device batch in eval mode: (inputs, outputs, losses)."""
         inputs = preprocess_batch(batch, self.opt.height, self.opt.width,
-                                  self.opt.num_scales, list(self.opt.frame_ids),
-                                  is_train=False)
+                                  self.opt.num_scales, self._frame_idxs(), is_train=False)
         self.models.train(False)
         with torch.no_grad():
             _, losses, outputs = mono_loss_fn(self.models, inputs, generator)
         return inputs, outputs, losses
 
     def val(self) -> Dict[str, float]:
-        """Losses of the next validation batch (loss only: the depth
-        metrics need KITTI ground truth)."""
+        """The losses of the next validation batch and, where it has
+        ``depth_gt``, its depth metrics; printed on one line and returned."""
         if self._val_iter is None:
             self._val_iter = iter(self.val_loader)
         try:
@@ -184,11 +269,47 @@ class TrainerBase:
         except StopIteration:
             self._val_iter = iter(self.val_loader)
             host = next(self._val_iter)
-        _, _, losses = self.process_batch(to_device(host, self.device))
+        _, outputs, losses = self.process_batch(device_batch(host, self.device))
         scalars = {k: float(v) for k, v in losses.items()}
+        if "depth_gt" in host:
+            scalars.update(self.compute_depth_losses(host, outputs))
         print("val " + " ".join(f"{k} {v:.5f}" for k, v in sorted(scalars.items())),
               flush=True)
         return scalars
+
+    def compute_depth_losses(self, batch, outputs) -> Dict[str, float]:
+        """:func:`depth_metrics` of ``depth/0/0`` against the host batch's
+        (B, 375, 1242) ``depth_gt``."""
+        depth = outputs["depth/0/0"][:, 0].detach().float().cpu().numpy()
+        return depth_metrics(depth, np.asarray(batch["depth_gt"]))
+
+    # ------------------------------------------------------ checkpoints
+    def save_model(self) -> str:
+        """``<log_dir>/<model_name>/models/weights_<epoch>/``: one ``.pth``
+        per module and ``adam.pth`` (``ssde_tpu/train/trainer.py:350-360``)."""
+        folder = os.path.join(self._models_dir(), f"weights_{self.epoch}")
+        checkpoint.save_folder(folder, self.models, self.state.optimizer,
+                               height=self.opt.height, width=self.opt.width,
+                               use_stereo=bool(self.opt.use_stereo))
+        print(f"saved model to {folder}")
+        return folder
+
+    def load_model(self) -> None:
+        """``--models_to_load`` from ``--load_weights_folder`` (a missing
+        file is skipped, a mismatched one raises), then ``adam.pth`` where
+        it is present and fits; the schedule resumes from its step count."""
+        folder = os.path.expanduser(self.opt.load_weights_folder)
+        if not os.path.isdir(folder):
+            raise FileNotFoundError(f"Cannot find folder {folder}")
+        print(f"loading model from folder {folder}")
+        _, loaded = checkpoint.load_folder(folder, self.models, self.opt.models_to_load)
+        print(f"loaded {loaded}")
+        adam = os.path.join(folder, "adam.pth")
+        if not os.path.isfile(adam):
+            print("Cannot find Adam weights so Adam is randomly initialized")
+        elif checkpoint.load_adam(adam, self.state.optimizer):
+            steps = [int(s["step"]) for s in self.state.optimizer.state.values() if "step" in s]
+            self.state.step = max(steps, default=0)
 
 
 class Trainer(TrainerBase):

@@ -7,21 +7,23 @@ As in the JAX trainer: frames are [0, -1, 1]; ``--fuse 0`` is overridden
 (the reference forces ``fuse=True``); ``--use_stereo`` raises; the rate is
 constant unless ``--gru_lr_decay`` (the reference never steps its StepLR);
 from epoch ``--h_s_epoch`` on the learned initial hidden states are frozen
-exactly while everything else trains on. Only ``--synthetic_data`` is
-ported (``SyntheticSeqDataset``, the JAX trainer's hermetic path); the KITTI
-sequences, the monodepth2 warm start from ``models/mono_640x192`` and the
-checkpoints are not, and ``--load_weights_folder`` or that warm start raise
-(:func:`~ssde_tpu_torch.train.trainer.refuse_weights_to_load`).
+exactly while everything else trains on. The data are T-frame windows of
+the ``--split``'s ``train_sequences``/``val_sequences`` scenes under
+``--data_path`` (:class:`~ssde_tpu_torch.data.sequence.KITTISeqDataset`),
+or ``--synthetic_data``. Checkpoints, loading and the monodepth2 warm start
+are the base trainer's, with ``gru.pth`` beside the mono modules; the depth
+metrics take the (B, T) ground truth B-major.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import Options
-from ..data.pipeline import Loader
+from ..data.sequence import KITTISeqDataset, count_scene_frames, generate_frame_tuples
+from ..data.splits import readlines, split_file
 from ..data.synthetic import SyntheticSeqDataset
-from .state import TrainState
 from .steps_gru import (build_gru_models, check_supported, gru_loss_fn,
                         preprocess_gru_batch, train_step)
 from .trainer import TrainerBase
@@ -46,31 +48,43 @@ class GRUTrainer(TrainerBase):
         self._h0_frozen = False
         super().__init__(options, device, seed)
 
+    def _frame_idxs(self):
+        return [0, -1, 1]
+
     def _build_data(self):
         opt = self.opt
-        if not opt.synthetic_data:
-            raise NotImplementedError(
-                "the KITTI sequence datasets are not ported yet; pass --synthetic_data")
-        self.train_dataset = SyntheticSeqDataset(
-            opt.height, opt.width, n=opt.len_sequence, length=opt.batch_size * 4)
-        self.val_dataset = SyntheticSeqDataset(
-            opt.height, opt.width, n=opt.len_sequence, length=opt.batch_size * 2,
-            is_train=False)
-        self.train_loader = Loader(self.train_dataset, opt.batch_size, shuffle=True,
-                                   drop_last=True, num_workers=opt.num_workers)
-        self.val_loader = Loader(self.val_dataset, opt.batch_size, shuffle=False,
-                                 drop_last=True, num_workers=opt.num_workers)
-        self._val_iter = None
+        if opt.synthetic_data:
+            self.train_dataset = SyntheticSeqDataset(
+                opt.height, opt.width, n=opt.len_sequence, length=opt.batch_size * 4)
+            self.val_dataset = SyntheticSeqDataset(
+                opt.height, opt.width, n=opt.len_sequence, length=opt.batch_size * 2,
+                is_train=False)
+        else:
+            train_scenes = readlines(split_file(opt.split, "train_sequences"))
+            val_scenes = readlines(split_file(opt.split, "val_sequences"))
+            n_frames = count_scene_frames(train_scenes + val_scenes, opt.data_path)
+            # k=2 extra frames: windows of T+2 so that every centre frame has
+            # both neighbours (reference trainer_gru.py:222)
+            train_tuples = generate_frame_tuples(n_frames, train_scenes, opt.len_sequence, 2,
+                                                 opt.train_n_tuples)
+            val_tuples = generate_frame_tuples(n_frames, val_scenes, opt.len_sequence, 2,
+                                               opt.test_n_tuples)
+            self.train_dataset = KITTISeqDataset(
+                opt.data_path, train_tuples, opt.height, opt.width, opt.len_sequence,
+                is_train=True, decoded_cache=opt.decoded_cache)
+            self.val_dataset = KITTISeqDataset(
+                opt.data_path, val_tuples, opt.height, opt.width, opt.len_sequence,
+                is_train=False, decoded_cache=opt.decoded_cache)
+        self._make_loaders()
 
-    def _build_models_and_state(self):
-        opt = self.opt
-        self.models = build_gru_models(opt, self.device,
-                                       torch.Generator().manual_seed(self.seed))
+    def _build_models(self):
+        return build_gru_models(self.opt, self.device,
+                                torch.Generator().manual_seed(self.seed))
+
+    def _scheduler_step_size(self) -> int:
         # the reference never steps its StepLR (trainer_gru.py:316): the rate
         # is constant unless --gru_lr_decay
-        step_size = opt.scheduler_step_size if opt.gru_lr_decay else 0
-        self.state = TrainState(self.models.parameters(), opt.learning_rate, step_size,
-                                max(1, len(self.train_loader)))
+        return self.opt.scheduler_step_size if self.opt.gru_lr_decay else 0
 
     def run_epoch(self):
         if self.epoch >= self.opt.h_s_epoch and not self._h0_frozen:
@@ -87,3 +101,10 @@ class GRUTrainer(TrainerBase):
         with torch.no_grad():
             _, losses, outputs = gru_loss_fn(self.models, inputs, B, T, generator)
         return inputs, outputs, losses
+
+    def compute_depth_losses(self, batch, outputs):
+        """(B, T, H, W) ground truth flattened B-major, as the B*T depths
+        are (``ssde_tpu/train/trainer_gru.py:172-175``)."""
+        gt = np.asarray(batch["depth_gt"])
+        return super().compute_depth_losses(
+            {"depth_gt": gt.reshape((-1,) + gt.shape[2:])}, outputs)

@@ -42,6 +42,7 @@ from ssde_tpu_torch.models.common import sample_
 from ssde_tpu_torch.ops.conv3x3 import (ACTS, PADS, conv3x3, conv3x3_reference,
                                         conv3x3_tf32x3_reference, dw_partitions, dw_tile_m,
                                         fwd_tiles, pack_weights, packed_weights, tf32_split)
+from ssde_tpu_torch import checkpoint
 from ssde_tpu_torch.scripts import evaluate_depth_gru_fusion, train_dpt, train_gru
 from ssde_tpu_torch.train import steps_gru
 
@@ -270,7 +271,7 @@ def test_float32_weight_gradient_partitions():
     assert dw_partitions(1, 1, 1, 1, 2, 132, F32) == 1
 
 
-# --------------------------------------------------- weights to load: refused
+# ------------------------------------------------------------ weights to load
 
 
 def _argv(*extra):
@@ -283,27 +284,50 @@ _TRAINERS = {"train_dpt": (train_dpt, ("--model", "monodepth2")),
              "train_gru": (train_gru, ("--gru_version", "v10", "--len_sequence", "2"))}
 
 
-@pytest.mark.parametrize("script", sorted(_TRAINERS))
-def test_trainers_refuse_a_weights_folder(script, tmp_path):
+def _build(script, *extra):
     module, flags = _TRAINERS[script]
-    opts = MonodepthOptions().parse(_argv(*flags, "--load_weights_folder", str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="--load_weights_folder"):
-        module.build_trainer(opts)
+    return module.build_trainer(MonodepthOptions().parse(_argv(*flags, *extra)))
+
+
+def _perturbed_folder(script, folder, log_dir):
+    """A trainer's seeded weights moved off the seed, saved to ``folder``
+    (the modules only); returns the modules' state dicts."""
+    tr = _build(script, "--mono_pretrained", "0", "--log_dir", str(log_dir))
+    g = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for p in tr.models.parameters():
+            p.add_(torch.randn(p.shape, generator=g))
+    checkpoint.save_folder(str(folder), tr.models, height=64, width=128)
+    return {name: {k: v.clone() for k, v in getattr(tr.models, name).state_dict().items()}
+            for name in checkpoint.MODULE_NAMES if getattr(tr.models, name, None) is not None}
+
+
+def _holds(models, want):
+    return all(torch.equal(v, want[name][k]) for name in want
+               for k, v in getattr(models, name).state_dict().items())
 
 
 @pytest.mark.parametrize("script", sorted(_TRAINERS))
-def test_trainers_refuse_the_mono_warm_start(script, tmp_path, monkeypatch):
+def test_trainers_load_a_weights_folder(script, tmp_path):
+    """--load_weights_folder loads every module file of the folder into the
+    trainer (no adam.pth: fresh moments)."""
+    want = _perturbed_folder(script, tmp_path / "w", tmp_path)
+    tr = _build(script, "--load_weights_folder", str(tmp_path / "w"), "--log_dir", str(tmp_path))
+    assert _holds(tr.models, want) and tr.state.step == 0
+    assert not _holds(_build(script, "--log_dir", str(tmp_path)).models, want)
+
+
+@pytest.mark.parametrize("script", sorted(_TRAINERS))
+def test_trainers_warm_start_from_mono_640x192(script, tmp_path, monkeypatch):
     """--mono_pretrained (on by default) with models/mono_640x192 in the
-    working directory is the JAX trainers' warm start: refused; with
-    --mono_pretrained 0, or without the folder, the trainer builds."""
-    module, flags = _TRAINERS[script]
+    working directory loads the module files there, as the JAX trainers
+    do; with --mono_pretrained 0, or with a folder to load, it does not."""
     monkeypatch.chdir(tmp_path)
-    assert MonodepthOptions().parse(_argv(*flags)).mono_pretrained
-    module.build_trainer(MonodepthOptions().parse(_argv(*flags)))
-    (tmp_path / "models" / "mono_640x192").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="--mono_pretrained"):
-        module.build_trainer(MonodepthOptions().parse(_argv(*flags)))
-    module.build_trainer(MonodepthOptions().parse(_argv(*flags, "--mono_pretrained", "0")))
+    assert MonodepthOptions().parse(_argv(*_TRAINERS[script][1])).mono_pretrained
+    want = _perturbed_folder(script, tmp_path / "models" / "mono_640x192", tmp_path)
+    assert _holds(_build(script, "--log_dir", str(tmp_path)).models, want)
+    assert not _holds(_build(script, "--mono_pretrained", "0", "--log_dir",
+                             str(tmp_path)).models, want)
 
 
 def test_evaluator_main_requires_a_weights_folder():

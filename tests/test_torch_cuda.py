@@ -568,3 +568,31 @@ def test_attention_conv_kernel_path_matches_the_plain_path(dev, shared_rel, use_
     scale = max(p.grad.abs().max() for p in cpu.parameters())  # the key bias's is 0
     for (name, a), b in zip(card.named_parameters(), cpu.parameters()):
         assert ((a.grad.cpu() - b.grad).abs().max() / scale).item() <= 1e-4, name
+
+
+def test_a_folder_saved_on_the_card_loads_on_the_cpu(dev, tmp_path):
+    """weights_<epoch>/ written from a mono trainer's models and Adam on the
+    card loads into models and an optimizer on the CPU bit for bit."""
+    from ssde_tpu_torch import checkpoint
+    from ssde_tpu_torch.config import Options
+    from ssde_tpu_torch.data.pipeline import to_device
+    from ssde_tpu_torch.data.synthetic import make_synthetic_batch
+    from ssde_tpu_torch.train.state import TrainState
+    from ssde_tpu_torch.train.steps import build_mono_models, train_step
+
+    opts = Options(height=64, width=128, batch_size=2)
+    card = build_mono_models(opts, dev, torch.Generator().manual_seed(0))
+    state = TrainState(card.parameters(), 1e-4, 15, 1)
+    train_step(card, state, to_device(make_synthetic_batch(2, 64, 128, seed=0), dev))
+    checkpoint.save_folder(str(tmp_path), card, state.optimizer, height=64, width=128)
+    cpu = build_mono_models(opts, "cpu", torch.Generator().manual_seed(1))
+    cpu_state = TrainState(cpu.parameters(), 1e-4, 15, 1)
+    assert checkpoint.load_folder(str(tmp_path), cpu)[1] == [
+        "encoder", "depth", "pose_encoder", "pose"]
+    assert checkpoint.load_adam(str(tmp_path / "adam.pth"), cpu_state.optimizer)
+    for a, b in zip(card.modules(), cpu.modules()):
+        for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
+            assert vb.device.type == "cpu" and torch.equal(va.cpu(), vb), k
+    for pa, pb in zip(card.parameters(), cpu.parameters()):
+        sa, sb = state.optimizer.state[pa], cpu_state.optimizer.state[pb]
+        assert all(torch.equal(sa[k].cpu(), sb[k]) for k in ("exp_avg", "exp_avg_sq", "step"))

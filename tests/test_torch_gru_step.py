@@ -50,6 +50,7 @@ from ssde_tpu.train.steps_gru import build_gru_models as jax_build_gru_models
 from ssde_tpu.train.steps_gru import gru_loss_fn as jax_gru_loss_fn
 from ssde_tpu.train.steps_gru import preprocess_gru_batch as jax_preprocess_gru_batch
 from ssde_tpu_torch.data.kitti import KITTI_K
+from ssde_tpu_torch.data.sequence import KITTISeqDataset
 from ssde_tpu_torch.data.pipeline import to_device
 from ssde_tpu_torch.models import make_gru
 from ssde_tpu_torch.models.common import init_weights_, sample_
@@ -59,6 +60,7 @@ from ssde_tpu_torch.ops.warp_banded import warp_family_fwd
 from ssde_tpu_torch.scripts import train_gru
 from ssde_tpu_torch.train import steps, steps_gru, trainer
 from ssde_tpu_torch.train.state import TrainState
+from test_kitti_tree import kitti_tree  # noqa: F401
 
 H, W, B, T = 64, 128, 1, 2
 GROUPS = ("encoder", "depth", "gru", "pose_encoder", "pose")
@@ -357,7 +359,7 @@ def test_trainer_freezes_h0_from_h_s_epoch():
     assert not any(torch.equal(a, b) for a, b in zip(tr.models.encoder.parameters(), enc))
 
 
-def test_gru_trainer_overrides_and_refusals(capsys):
+def test_gru_trainer_overrides_and_refusals(capsys, kitti_tree, monkeypatch):  # noqa: F811
     opt = train_gru.MonodepthOptions().parse(_argv("--fuse", "0", "--frame_ids", "0", "1"))
     tr = train_gru.build_trainer(opt)
     assert "overridden" in capsys.readouterr().out
@@ -369,9 +371,11 @@ def test_gru_trainer_overrides_and_refusals(capsys):
         with pytest.raises(NotImplementedError, match=slice_):
             train_gru.build_trainer(
                 train_gru.MonodepthOptions().parse(_argv("--gru_version", version)))
-    with pytest.raises(NotImplementedError, match="synthetic_data"):
-        train_gru.build_trainer(train_gru.MonodepthOptions().parse(
-            [a for a in _argv() if a != "--synthetic_data"]))
+    # without --synthetic_data the trainer reads --data_path's scenes
+    monkeypatch.setenv("SSDE_SPLITS_DIR", kitti_tree["splits"])
+    tr = train_gru.build_trainer(train_gru.MonodepthOptions().parse(
+        [a for a in _argv() if a != "--synthetic_data"] + ["--data_path", kitti_tree["data"]]))
+    assert isinstance(tr.train_dataset, KITTISeqDataset) and len(tr.train_loader) == 3
 
 
 def test_trainers_need_a_card_unless_the_cpu_is_asked_for(monkeypatch):

@@ -29,6 +29,7 @@ gradients and must leave the same parameters to two float32 ulps.
 
 import copy
 import functools
+import os
 
 import flax.linen
 import numpy as np
@@ -222,12 +223,26 @@ def test_trainer_epoch_through_the_entry_point(tmp_path, capsys):
             photometric_bwd.launches) == before
 
 
-def test_train_refuses_to_reach_save_model(tmp_path):
+def test_train_writes_weights_0(tmp_path):
+    """At the default --save_frequency 1, train() ends its epoch with
+    save_model(): weights_0/ holds the four modules, each the trainer's
+    state, and adam.pth, beside models/opt.json."""
     opts = train_dpt.MonodepthOptions().parse(
         ["--model", "monodepth2", "--synthetic_data", "--height", "32", "--width", "64",
-         "--batch_size", "2", "--num_epochs", "1", "--log_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="save_frequency"):
-        train_dpt.build_trainer(opts, "cpu").train()
+         "--batch_size", "2", "--num_epochs", "1", "--log_frequency", "8",
+         "--num_workers", "1", "--log_dir", str(tmp_path)])
+    trainer = train_dpt.build_trainer(opts, "cpu")
+    trainer.train()
+    folder = tmp_path / "mdp" / "models" / "weights_0"
+    assert sorted(os.listdir(folder)) == ["adam.pth", "depth.pth", "encoder.pth", "pose.pth",
+                                          "pose_encoder.pth"]
+    assert (tmp_path / "mdp" / "models" / "opt.json").is_file()
+    for name in ("encoder", "depth", "pose_encoder", "pose"):
+        sd = torch.load(folder / f"{name}.pth", weights_only=True)
+        for k, v in getattr(trainer.models, name).state_dict().items():
+            assert torch.equal(sd[k], v), (name, k)
+    adam = torch.load(folder / "adam.pth", weights_only=True)
+    assert {int(s["step"]) for s in adam["state"].values()} == {8}
 
 
 @pytest.mark.parametrize("model", ["rn_encoder_with_attention", "rn_fusion", "dpt_gru"])

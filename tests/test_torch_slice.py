@@ -6,7 +6,8 @@ on the same weights and synthetic frames, for all three protocols, at
 64x128 in float32 (bound 1e-4 on the disparity). A subprocess with the
 imports of JAX, flax and the JAX package (``ssde_tpu``) blocked shows that
 the port, its mono and GRU (v10 and v9) training slices included, needs
-none of them.
+none of them: there, the mono trainer also trains on a written KITTI tree
+and saves its weights.
 """
 
 import os
@@ -236,6 +237,43 @@ _NO_JAX = textwrap.dedent("""
     opt.gru_version, opt.height, opt.width = "v9", 64, 128
     disp = build_evaluator(opt, "cpu").predict_scene(scene_frames(64, 128, 2))
     assert disp[-1].shape == (1, 64, 128) and 0 < disp[-1].min() < disp[-1].max() < 1
+
+    # the mono trainer on a written KITTI tree: one epoch, then weights_0
+    import os, tempfile
+    import numpy as np
+    from PIL import Image
+    root = tempfile.mkdtemp()
+    drive = "2011_09_26/2011_09_26_drive_0001_sync"
+    for cam in ("image_02", "image_03"):
+        os.makedirs(os.path.join(root, "kitti", drive, cam, "data"))
+    os.makedirs(os.path.join(root, "kitti", drive, "velodyne_points", "data"))
+    rs = np.random.RandomState(0)
+    for i in range(6):
+        for cam in ("image_02", "image_03"):
+            Image.fromarray((rs.rand(48, 160, 3) * 255).astype(np.uint8)).save(
+                os.path.join(root, "kitti", drive, cam, "data", f"{i:010d}.jpg"))
+        pts = rs.rand(256, 4).astype(np.float32) * [20, 10, 2, 1] + [5, -5, -1, 0]
+        pts.astype(np.float32).tofile(
+            os.path.join(root, "kitti", drive, "velodyne_points", "data", f"{i:010d}.bin"))
+    with open(os.path.join(root, "kitti", "2011_09_26", "calib_cam_to_cam.txt"), "w") as f:
+        f.write("S_rect_02: 1242 375\\nR_rect_00: 1 0 0 0 1 0 0 0 1\\n"
+                "P_rect_02: 721.5 0 609.6 44.9 0 721.5 172.9 0.2 0 0 1 0.003\\n")
+    with open(os.path.join(root, "kitti", "2011_09_26", "calib_velo_to_cam.txt"), "w") as f:
+        f.write("R: 0 -1 0 0 0 -1 1 0 0\\nT: 0 -0.08 -0.27\\n")
+    os.makedirs(os.path.join(root, "splits", "eigen_zhou"))
+    for which, ids in (("train", (1, 2, 3, 4)), ("val", (2, 3))):
+        with open(os.path.join(root, "splits", "eigen_zhou", f"{which}_files.txt"), "w") as f:
+            f.write("".join(f"{drive} {i} l\\n" for i in ids))
+    os.environ["SSDE_SPLITS_DIR"] = os.path.join(root, "splits")
+    from ssde_tpu_torch.scripts import train_dpt
+    trainer = train_dpt.main(
+        ["--model", "monodepth2", "--data_path", os.path.join(root, "kitti"), "--height", "32",
+         "--width", "64", "--batch_size", "2", "--num_epochs", "1", "--num_workers", "1",
+         "--compute_dtype", "float32", "--log_frequency", "1", "--mono_pretrained", "0",
+         "--no_cuda", "--log_dir", os.path.join(root, "log")])
+    assert trainer.step == 2 and "depth_gt" in trainer.train_dataset[0]
+    saved = sorted(os.listdir(os.path.join(root, "log", "mdp", "models", "weights_0")))
+    assert saved == ["adam.pth", "depth.pth", "encoder.pth", "pose.pth", "pose_encoder.pth"]
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("no-jax ok")
 """)
