@@ -95,6 +95,17 @@ Phases, each fatal on failure:
              ms, and the seconds of save_model and load_model;
              --matmul_precision float32 turning both TF32 switches off and
              default leaving them
+ 20. mono eval     on phase 19's tree and its mono weights_0: an eigen-style
+             test list (both cameras of the drive) and an odometry sequence
+             09 at 1241x376 with poses/09.txt, written beside it;
+             scripts/export_gt_depth, then through each script's main():
+             evaluate_depth at 640x192 (float32, TF32 off) with and without
+             --post_process, evaluate_depth_gru_fusion --protocol mdp (the
+             same metrics), test_simple on a folder of frames and
+             evaluate_pose on odom_9: finite metrics and ATE, frames/s and
+             the device's idle share of the prediction loop, test_simple's
+             median ms an image, evaluate_pose's pairs/s; mono_infer card vs
+             CPU on 4 frames
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, each with its launches on the main path (for
@@ -120,6 +131,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -278,7 +290,11 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        import ssde_tpu_torch.scripts.evaluate_depth  # noqa: F401
         import ssde_tpu_torch.scripts.evaluate_depth_gru_fusion  # noqa: F401
+        import ssde_tpu_torch.scripts.evaluate_pose  # noqa: F401
+        import ssde_tpu_torch.scripts.export_gt_depth  # noqa: F401
+        import ssde_tpu_torch.scripts.test_simple  # noqa: F401
         import ssde_tpu_torch.scripts.train_dpt  # noqa: F401
         import ssde_tpu_torch.scripts.train_gru  # noqa: F401
         from ssde_tpu_torch.ops.build import load_library
@@ -375,7 +391,13 @@ def main() -> None:
                          "launches": launch_counts[name] + serve_counts.get(name, 0),
                          "max_abs_err": errs[name], **times[name]}
     default_size_steps(dev, card)
-    kitti_train(dev, card, mono_step_ms)
+    root = tempfile.mkdtemp(prefix="ssde_kitti_")
+    try:
+        tree = kitti_train(dev, card, mono_step_ms, root)
+        mono_eval(dev, card, root, *tree)
+    finally:
+        os.environ.pop("SSDE_SPLITS_DIR", None)
+        shutil.rmtree(root, ignore_errors=True)
     print(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s [{card}]")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -2074,6 +2096,18 @@ T: -4.069766e-03 -7.631618e-02 -2.717806e-01
 """
 
 
+def _blob_canvas(rs, h, w):
+    """An (h, >= w, 3) uint8 texture of smooth blobs with fine grain in
+    them, from ``rs``."""
+    from PIL import Image
+
+    coarse = rs.rand(h // 25 + 2, w // 25 + 2, 3)
+    big = np.asarray(Image.fromarray((coarse * 255).astype(np.uint8)).resize(
+        (coarse.shape[1] * 25, coarse.shape[0] * 25), Image.BICUBIC), np.float32)
+    fine = rs.rand(*big.shape[:2], 1).astype(np.float32) * 48  # texture inside the blobs
+    return np.clip(big * 0.8 + fine, 0, 255).astype(np.uint8)[:h]
+
+
 def write_kitti_tree(root):
     """A KITTI raw drive at KITTI's sizes under ``root``/kitti, and the lists
     under ``root``/splits (eigen_zhou): each camera's frames are crops of one
@@ -2084,11 +2118,7 @@ def write_kitti_tree(root):
 
     rs = np.random.RandomState(SEED)
     w, h, step = 1242, 375, 6
-    coarse = rs.rand(h // 25 + 2, (w + step * KITTI_FRAMES + 40) // 25 + 2, 3)
-    big = np.asarray(Image.fromarray((coarse * 255).astype(np.uint8)).resize(
-        (coarse.shape[1] * 25, coarse.shape[0] * 25), Image.BICUBIC), np.float32)
-    fine = rs.rand(*big.shape[:2], 1).astype(np.float32) * 48  # texture inside the blobs
-    canvas = np.clip(big * 0.8 + fine, 0, 255).astype(np.uint8)[:h]
+    canvas = _blob_canvas(rs, h, w + step * KITTI_FRAMES + 40)
     data = os.path.join(root, "kitti")
     for cam, off in (("image_02", 0), ("image_03", 40)):
         d = os.path.join(data, KITTI_DRIVE, cam, "data")
@@ -2306,10 +2336,10 @@ def _loader_rate(dataset, workers, passes=1):
     return n / (time.perf_counter() - t0)
 
 
-def kitti_train(dev, card, mono_step_ms):
-    """Phase 19: both trainers on a KITTI raw tree at KITTI's sizes."""
-    import tempfile
-
+def kitti_train(dev, card, mono_step_ms, root):
+    """Phase 19: both trainers on a KITTI raw tree at KITTI's sizes, written
+    under ``root``. Returns (data path, splits dir, the mono trainer's
+    weights_0) for phase 20."""
     import torch
 
     from ssde_tpu_torch.config import MonodepthOptions
@@ -2320,7 +2350,6 @@ def kitti_train(dev, card, mono_step_ms):
     from ssde_tpu_torch.train.trainer_gru import GRUTrainer
 
     torch.backends.cudnn.allow_tf32 = True  # the training configuration
-    root = tempfile.mkdtemp(prefix="ssde_kitti_")
     try:
         t0 = time.perf_counter()
         data, splits, train_lines = write_kitti_tree(root)
@@ -2354,11 +2383,11 @@ def kitti_train(dev, card, mono_step_ms):
         if (o.batch_size, o.height, o.width, o.compute_dtype, o.save_frequency) != (
                 MONO_B, H, W, "bfloat16", 1):
             fail(f"unexpected Options defaults {o}")
-        trainer, folder = _kitti_trainer_run(
+        trainer, mono_weights = _kitti_trainer_run(
             "mono", Trainer, train_dpt.main, argv,
             ["encoder.pth", "depth.pth", "pose_encoder.pth", "pose.pth", "adam.pth"],
             ["warp_family_fwd", "photometric_fwd", "photometric_bwd"], card)
-        _kitti_reload("mono", train_dpt.build_trainer, parse, argv, trainer, folder, card)
+        _kitti_reload("mono", train_dpt.build_trainer, parse, argv, trainer, mono_weights, card)
         # the loader-fed step: an unprofiled epoch on the host clock, then a
         # profiled one for the device's busy time (val() left out of both)
         trainer.val = lambda: {}
@@ -2410,11 +2439,198 @@ def kitti_train(dev, card, mono_step_ms):
             if got != (want, want):
                 fail(f"--matmul_precision {value} left the TF32 switches at {got}")
     finally:
-        os.environ.pop("SSDE_SPLITS_DIR", None)
-        shutil.rmtree(root, ignore_errors=True)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    return data, splits, mono_weights
 
+
+
+# ============================================================ mono eval
+
+ODOM_FRAMES = 65  # frames of odometry sequence 09: 64 frame pairs, a test line each
+SIMPLE_IMAGES = 8  # test_simple's folder
+# card vs CPU of the evaluation's disparity, float32 with TF32 off: the
+# largest difference over the largest value (phase 4's bound)
+TOL_EVAL_CARD_VS_CPU = 1e-3
+
+
+def write_odometry_sequence(data, splits):
+    """KITTI odometry sequence 09 under ``data``: ODOM_FRAMES 1241x376 JPEGs
+    a camera sliding along a texture, and ``poses/09.txt`` (the camera
+    0.8 m forward a frame, turning 0.01 rad a frame); the test list
+    ``odom/test_files_09.txt`` under ``splits``, a line per frame pair as
+    KITTI's (1590 lines for 1591 poses)."""
+    from PIL import Image
+
+    rs = np.random.RandomState(SEED + 1)
+    w, h, step = 1241, 376, 6
+    canvas = _blob_canvas(rs, h, w + step * ODOM_FRAMES + 40)
+    for cam, off in (("image_2", 0), ("image_3", 40)):
+        d = os.path.join(data, "sequences", "09", cam)
+        os.makedirs(d)
+        for i in range(ODOM_FRAMES):
+            x = off + step * i
+            Image.fromarray(canvas[:, x:x + w]).save(os.path.join(d, f"{i:06d}.jpg"),
+                                                     quality=90)
+    rows, pos = [], np.zeros(3)
+    for i in range(ODOM_FRAMES):
+        yaw = 0.01 * i
+        c, s = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        rows.append(np.concatenate([R, pos[:, None]], 1).reshape(-1))
+        pos = pos + R @ np.array([0.0, 0.0, 0.8])
+    os.makedirs(os.path.join(data, "poses"))
+    np.savetxt(os.path.join(data, "poses", "09.txt"), np.array(rows))
+    os.makedirs(os.path.join(splits, "odom"))
+    with open(os.path.join(splits, "odom", "test_files_09.txt"), "w") as f:
+        f.write("\n".join(f"9 {i} l" for i in range(ODOM_FRAMES - 1)) + "\n")
+
+
+def mono_eval(dev, card, root, data, splits, weights):
+    """Phase 20: the mono and pose evaluation entry points on phase 19's
+    tree and its mono weights_0, everything written under ``root``."""
+    import torch
+
+    from ssde_tpu_torch.config import MonodepthOptions
+    from ssde_tpu_torch.data.kitti import pil_load_resized
+    from ssde_tpu_torch.eval.depth import evaluate_depth_predictions
+    from ssde_tpu_torch.scripts import (evaluate_depth, evaluate_depth_gru_fusion,
+                                        evaluate_pose, export_gt_depth, test_simple)
+    from ssde_tpu_torch.train.steps import mono_infer
+
+    phase0 = time.perf_counter()
+    counters = _gru_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    lines = [f"{KITTI_DRIVE} {i} {side}" for side in "lr" for i in range(KITTI_FRAMES)]
+    os.makedirs(os.path.join(splits, "eigen"))
+    with open(os.path.join(splits, "eigen", "test_files.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    write_odometry_sequence(data, splits)
+    os.environ["SSDE_SPLITS_DIR"] = splits
+    t0 = time.perf_counter()
+    gt_path = export_gt_depth.main(["--data_path", data, "--split", "eigen"])
+    gt = np.load(gt_path, allow_pickle=True)["data"]
+    print(f"eval: export_gt_depth of {len(lines)} eigen-style lines: {gt.shape} "
+          f"{gt.dtype} of {gt[0].shape} {gt[0].dtype} maps, "
+          f"{sum(int((g > 0).sum()) for g in gt) / len(gt):.0f} valid pixels a map, "
+          f"{time.perf_counter() - t0:.2f} s")
+    if gt.shape != (len(lines),) or gt[0].shape != (375, 1242):
+        fail(f"eval: gt_depths.npz holds {gt.shape}, expected {len(lines)} maps")
+
+    # ---- evaluate_depth, with and without --post_process, and mdp
+    base = ["--eval_mono", "--data_path", data, "--load_weights_folder", weights,
+            "--height", str(H), "--width", str(W), "--save_pred_disps"]
+    names = evaluate_depth.METRIC_NAMES
+    results = {}
+    for label, extra in (("plain", []), ("post_process", ["--post_process"])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = evaluate_depth.main(base + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        disps = np.load(os.path.join(weights, "disps_eigen_split.npy"))
+        results[label] = m, disps
+        print(f"eval: evaluate_depth {label} {H}x{W} float32 (TF32 off): main() {wall:.2f} s "
+              f"for {len(lines)} frames ({len(lines) / wall:.1f} frames/s, building, loading "
+              f"and the ground truth included); " + " ".join(f"{n} {m[n]:.4f}" for n in names)
+              + f"; med_scale {m['med_scale']:.3f} [{card}]")
+        if disps.shape != (len(lines), H, W) or not np.isfinite(disps).all() or \
+                not all(np.isfinite(m[n]) for n in names):
+            fail(f"eval: evaluate_depth {label}: disparities {disps.shape} or metrics not "
+                 "finite")
+    if np.abs(results["plain"][1] - results["post_process"][1]).max() == 0:
+        fail("eval: --post_process left the disparities as they were")
+    m = evaluate_depth_gru_fusion.main(["--protocol", "mdp"] + base)
+    worst = max(abs(m[n] - results["plain"][0][n]) / abs(results["plain"][0][n]) for n in names)
+    print("eval: evaluate_depth_gru_fusion --protocol mdp: " + " ".join(
+        f"{n} {m[n]:.4f}" for n in names) + f"; against evaluate_depth {worst:.2e} relative")
+    if worst > 1e-6:
+        fail("eval: the mdp protocol does not give evaluate_depth's metrics")
+
+    # ---- the prediction loop alone: frames/s and the device's idle share
+    opt = MonodepthOptions().parse(base)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluate_depth.predict_disps(opt, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, _, _ = _device_idle_share(lambda: evaluate_depth.predict_disps(opt, dev), 1)
+    print(f"eval: predict_disps (the loader's batches of 16 from the JPEGs, "
+          f"{opt.num_workers} threads on {os.cpu_count()} cores): {len(lines) / wall:.1f} "
+          f"frames/s over {len(lines)} (host clock, building and loading included); device "
+          f"busy {busy:.1f} ms of {wall * 1e3:.1f}: idle share {1 - busy / (wall * 1e3):.1%} "
+          f"[{card}]")
+    t0 = time.perf_counter()
+    evaluate_depth.load_mono_models(opt, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gts = evaluate_depth.load_gt_depths(opt)
+    gt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    evaluate_depth_predictions(results["plain"][1], gts)
+    metrics_s = time.perf_counter() - t0
+    print(f"eval: evaluate_depth's parts (host clock): the models built and loaded "
+          f"{build_s:.2f} s, the prediction loop {wall:.2f} s, gt_depths.npz read {gt_s:.2f} s, "
+          f"the metrics over {len(gts)} maps {metrics_s:.2f} s (numpy) [{card}]")
+
+    # ---- the card against the CPU on the same 4 frames
+    x = np.stack([pil_load_resized(os.path.join(data, KITTI_DRIVE, "image_02", "data",
+                                                 f"{i:010d}.jpg"), W, H, False)
+                  for i in range(4)])
+    x = torch.from_numpy(x).permute(0, 3, 1, 2)
+    on_card = mono_infer(evaluate_depth.load_mono_models(opt, dev), x).cpu()
+    on_cpu = mono_infer(evaluate_depth.load_mono_models(opt, "cpu"), x)
+    rel = ((on_card - on_cpu).abs().max() / on_cpu.abs().max()).item()
+    print(f"eval: mono_infer card vs CPU on 4 frames, float32, TF32 off: max |d disp| "
+          f"{(on_card - on_cpu).abs().max().item():.3e}, {rel:.3e} of the largest "
+          f"(bound {TOL_EVAL_CARD_VS_CPU})")
+    if not rel <= TOL_EVAL_CARD_VS_CPU:
+        fail("eval: the card and the CPU disagree on the disparity")
+
+    # ---- test_simple on a folder of frames
+    folder = os.path.join(root, "simple")
+    os.makedirs(folder)
+    for i in range(SIMPLE_IMAGES):
+        shutil.copy(os.path.join(data, KITTI_DRIVE, "image_02", "data", f"{i:010d}.jpg"),
+                    os.path.join(folder, f"{i:010d}.jpg"))
+    times = test_simple.main(["--image_path", folder, "--model_path", weights])
+    made = sorted(os.listdir(folder))
+    npy = [np.load(os.path.join(folder, f)) for f in made if f.endswith("_disp.npy")]
+    jpeg = [f for f in made if f.endswith("_disp.jpeg")]
+    ms = [t * 1e3 for _, t in times]
+    print(f"eval: test_simple on {len(times)} images of 1242x375: median {np.median(ms):.1f} "
+          f"ms an image (decode to files written; first {ms[0]:.1f}, range "
+          f"{min(ms):.1f}-{max(ms):.1f}), {len(npy)} *_disp.npy, {len(jpeg)} *_disp.jpeg "
+          f"[{card}]")
+    if len(times) != SIMPLE_IMAGES or len(npy) != SIMPLE_IMAGES or not all(
+            a.shape == (1, H, W, 1) and np.isfinite(a).all() for a in npy):
+        fail("eval: test_simple did not write a finite disparity for every image")
+
+    # ---- evaluate_pose on odom_9
+    argv = ["--eval_split", "odom_9", "--data_path", data, "--load_weights_folder", weights,
+            "--height", str(H), "--width", str(W)]
+    pairs = ODOM_FRAMES - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean_ate, std_ate = evaluate_pose.main(argv)
+    wall = time.perf_counter() - t0
+    poses = np.load(os.path.join(weights, "poses.npy"))
+    opt = MonodepthOptions().parse(argv)
+    t0 = time.perf_counter()
+    evaluate_pose.predict_poses(opt, 9, dev)
+    loop = time.perf_counter() - t0
+    print(f"eval: evaluate_pose odom_9, {pairs} frame pairs of 1241x376 at {H}x{W}: ATE "
+          f"{mean_ate:.4f} std {std_ate:.4f}; main() {wall:.2f} s ({pairs / wall:.1f} "
+          f"pairs/s), the prediction loop {pairs / loop:.1f} pairs/s (host clock, building "
+          f"and loading included) [{card}]")
+    if poses.shape != (pairs, 4, 4) or not np.isfinite(poses).all() or \
+            not np.isfinite([mean_ate, std_ate]).all():
+        fail(f"eval: evaluate_pose gave poses {poses.shape} or a non-finite ATE")
+    launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    print(f"eval: phase 20 took {time.perf_counter() - phase0:.1f} s; launches of the port's "
+          f"kernels in it {launched} (its networks run in cuDNN) [{card}]")
 
 
 if __name__ == "__main__":

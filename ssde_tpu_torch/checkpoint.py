@@ -226,6 +226,29 @@ def load_reference_folder(folder: str, models) -> Dict[str, int]:
     return load_folder(folder, models, ("encoder", "depth", "gru"))[0]
 
 
+def load_eval_folder(folder: str, models, names: Sequence[str]) -> Dict[str, int]:
+    """Load the modules ``names`` that an evaluation script reads from
+    ``folder`` (:func:`load_folder`, strict) and return the encoder's
+    embedded entries. Unlike training, evaluation needs every one of them:
+    a missing file raises. A folder of the JAX package's native ``.ckpt``
+    files (flax msgpack, ``ssde_tpu/checkpoint.py:44-56``) raises
+    ``NotImplementedError``: the port reads only ``.pth`` folders."""
+    if not os.path.isdir(folder):
+        raise FileNotFoundError(
+            f"Cannot find a folder at {folder} (the Monodepth2 model-zoo download "
+            "is not ported: unzip a published model into that folder first)")
+    files = os.listdir(folder)
+    if not any(f.endswith(".pth") for f in files) and any(f.endswith(".ckpt") for f in files):
+        raise NotImplementedError(
+            f"{folder} holds the JAX package's native .ckpt files (flax msgpack), which "
+            "the port does not read; convert them to the reference's .pth layout")
+    meta, loaded = load_folder(folder, models, names)
+    missing = [n for n in names if n not in loaded]
+    if missing:
+        raise FileNotFoundError(f"{folder} has no {', '.join(n + '.pth' for n in missing)}")
+    return meta
+
+
 def save_folder(folder: str, models, optimizer=None, *, height: int, width: int,
                 use_stereo: bool = False) -> None:
     """Write every module of ``models`` that exists as ``<name>.pth`` (CPU

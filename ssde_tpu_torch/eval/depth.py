@@ -1,6 +1,5 @@
-"""Depth evaluation protocol (numpy, host-side): the part of
-``ssde_tpu/eval/depth.py`` that the port's evaluation scripts use, copied
-so that the port imports nothing of ``ssde_tpu``
+"""Depth evaluation protocol (numpy, host-side): ``ssde_tpu/eval/depth.py``,
+copied so that the port imports nothing of ``ssde_tpu``
 (``tests/test_torch_config.py`` holds the copy to the original).
 
 Reproduces the Monodepth2 eigen evaluation exactly (reference
@@ -18,6 +17,7 @@ import numpy as np
 EIGEN_CROP = (0.40810811, 0.99189189, 0.03594771, 0.96405229)
 MIN_DEPTH = 1e-3
 MAX_DEPTH = 80.0
+STEREO_SCALE_FACTOR = 5.4
 
 
 def compute_errors(gt: np.ndarray, pred: np.ndarray):
@@ -31,6 +31,16 @@ def compute_errors(gt: np.ndarray, pred: np.ndarray):
     abs_rel = np.mean(np.abs(gt - pred) / gt)
     sq_rel = np.mean(((gt - pred) ** 2) / gt)
     return abs_rel, sq_rel, rmse, rmse_log, a1, a2, a3
+
+
+def batch_post_process_disparity(l_disp: np.ndarray, r_disp: np.ndarray):
+    """Monodepthv1 flip-averaging post-process (evaluate_depth.py:48-56)."""
+    _, h, w = l_disp.shape
+    m_disp = 0.5 * (l_disp + r_disp)
+    l, _ = np.meshgrid(np.linspace(0, 1, w), np.linspace(0, 1, h))
+    l_mask = (1.0 - np.clip(20 * (l - 0.05), 0, 1))[None, ...]
+    r_mask = l_mask[:, :, ::-1]
+    return r_mask * l_disp + l_mask * r_disp + (1.0 - l_mask - r_mask) * m_disp
 
 
 def _resize_bilinear_np(img: np.ndarray, out_hw) -> np.ndarray:

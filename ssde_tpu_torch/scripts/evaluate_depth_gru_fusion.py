@@ -8,7 +8,8 @@ Protocols (selected with --protocol):
              through the recurrence first
   scene      stream whole ordered scenes carrying state (uses
              gt_depths_seq.npz from scripts/export_gt_depth_seq.py)
-  mdp        plain monodepth2 baseline (not ported yet)
+  mdp        plain monodepth2 baseline: the evaluate_depth protocol on the
+             folder's encoder.pth and depth.pth
 
 Run: python -m ssde_tpu_torch.scripts.evaluate_depth_gru_fusion
        --gru_version v9 --load_weights_folder <folder of .pth files> ...
@@ -35,6 +36,8 @@ from ..eval.depth import evaluate_depth_predictions
 from ..eval.gru_runners import GRUStreamEvaluator
 from ..ops.geometry import disp_to_depth
 from ..train.steps_gru import build_gru_models
+from .evaluate_depth import evaluate as evaluate_mono
+from .evaluate_depth import load_gt_depths, print_metrics
 
 # (position in the test list, warm-up frames, test image), frames (1, H, W, 3)
 Item = Tuple[int, List[np.ndarray], np.ndarray]
@@ -129,10 +132,11 @@ def main(argv=None):
     if not opt.load_weights_folder:
         raise ValueError("--load_weights_folder is required: the folder of the trained "
                          "encoder.pth, depth.pth and gru.pth to evaluate")
-    if args.protocol == "mdp":
-        raise NotImplementedError("the mono baseline (mdp) is not ported yet")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")
+    if args.protocol == "mdp":
+        # the plain monodepth2 baseline is the evaluate_depth protocol (:76-82)
+        return evaluate_mono(opt, args.device)
 
     split = split_file(opt.eval_split, "test")
     with open(split) as f:
@@ -141,8 +145,7 @@ def main(argv=None):
     ev = build_evaluator(opt, args.device)
 
     if args.protocol in ("single", "warmup"):
-        gt_list = list(np.load(os.path.join(gt_dir, "gt_depths.npz"),
-                               allow_pickle=True)["data"])
+        gt_list = load_gt_depths(opt)
         items = []
         for pos, line in enumerate(filenames):
             folder, idx, _ = line.split()
@@ -180,9 +183,7 @@ def main(argv=None):
         disable_median_scaling=opt.disable_median_scaling,
         pred_depth_scale_factor=opt.pred_depth_scale_factor,
     )
-    names = ["abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3"]
-    print("\n  " + ("{:>8} | " * 7).format(*names))
-    print(("&{: 8.3f}  " * 7).format(*[metrics[n] for n in names]) + "\\\\")
+    print_metrics(metrics)
     return metrics
 
 

@@ -252,3 +252,24 @@ def train_step(models: MonoModels, state: TrainState, batch,
     loss.backward()
     state.apply_gradients()
     return {k: v.detach() for k, v in losses.items()}
+
+
+def mono_infer(models: MonoModels, images: torch.Tensor) -> torch.Tensor:
+    """Disparity at scale 0 of (B, 3, H, W) images in [0, 1]: the
+    counterpart of ``make_mono_infer_fn`` (``ssde_tpu/train/steps.py:652-664``).
+    The encoder runs in eval mode (BatchNorm from its running statistics,
+    which stay as they are) and the decoder after it, under
+    ``torch.inference_mode`` on the models' device; (B, 1, H, W) float32.
+    The modules' train/eval modes are restored afterwards."""
+    mods = (models.encoder, models.depth)
+    modes = [m.training for m in mods]
+    device = next(models.encoder.parameters()).device
+    try:
+        for m in mods:
+            m.eval()
+        with torch.inference_mode():
+            disp = models.depth(models.encoder(images.to(device)))["disp/0"]
+    finally:
+        for m, mode in zip(mods, modes):
+            m.train(mode)
+    return disp.float()

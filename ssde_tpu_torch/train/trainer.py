@@ -54,16 +54,17 @@ def _hm(seconds: float) -> str:
     return f"{m // 60:02d}h{m % 60:02d}m"
 
 
-def train_device(opt: Options, device=None) -> torch.device:
-    """The trainers' device: ``device`` if given, else the CPU under
-    ``--no_cuda`` and the card otherwise. A card that is asked for and
-    absent is an error: nothing falls back to the CPU."""
+def run_device(opt: Options, device=None) -> torch.device:
+    """The entry points' device (the trainers' and the evaluation
+    scripts'): ``device`` if given, else the CPU under ``--no_cuda`` and the
+    card otherwise. A card that is asked for and absent is an error:
+    nothing falls back to the CPU."""
     if device is None:
         device = "cpu" if opt.no_cuda else "cuda"
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card is available: the trainer runs on the card; "
-                           "pass --no_cuda (or device='cpu') to train on the CPU")
+        raise RuntimeError("no CUDA card is available: the port runs on the card; "
+                           "pass --no_cuda (or device='cpu') to run on the CPU")
     return device
 
 
@@ -125,7 +126,7 @@ class TrainerBase:
         assert self.opt.frame_ids[0] == 0, "frame_ids must start with 0"
         self.check_supported(self.opt)
         apply_matmul_precision(self.opt)
-        self.device = train_device(self.opt, device)
+        self.device = run_device(self.opt, device)
         self.step = 0
         self.epoch = 0
         self.seed = seed

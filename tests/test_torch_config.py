@@ -1,8 +1,8 @@
 """The port's copies of host-side JAX-package code against their originals.
 
 ``ssde_tpu_torch.config`` (``Options``, ``MonodepthOptions``) and
-``ssde_tpu_torch.eval.depth`` (the eigen protocol the GRU evaluation script
-reports) are copies, so that the port imports nothing of ``ssde_tpu``. The
+``ssde_tpu_torch.eval.depth`` (the eigen protocol and the flip post-process
+that the evaluation scripts use) are copies, so that the port imports nothing of ``ssde_tpu``. The
 fields, defaults, flags and choices must stay the original's, and the
 metrics must give the original's numbers (1e-12 relative: the same numpy
 arithmetic).
@@ -82,3 +82,14 @@ def test_evaluate_depth_predictions_matches(kw):
     assert got.keys() == want.keys()
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-12, err_msg=k)
+
+
+@pytest.mark.parametrize("shape", [(3, 48, 160), (1, 7, 5)])
+def test_batch_post_process_disparity_matches(shape):
+    rng = np.random.RandomState(2)
+    left, right = rng.rand(*shape).astype(np.float32), rng.rand(*shape).astype(np.float32)
+    got = depth.batch_post_process_disparity(left, right[:, :, ::-1])
+    np.testing.assert_array_equal(
+        got, jax_depth.batch_post_process_disparity(left, right[:, :, ::-1]))
+    assert got.shape == shape
+    assert depth.STEREO_SCALE_FACTOR == jax_depth.STEREO_SCALE_FACTOR == 5.4
