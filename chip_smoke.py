@@ -106,10 +106,27 @@ Phases, each fatal on failure:
              the device's idle share of the prediction loop, test_simple's
              median ms an image, evaluate_pose's pairs/s; mono_infer card vs
              CPU on 4 frames
+ 21. gru family    the rest of the recurrent family, v1, v2, v2_wo_att,
+             v3, v4, v5 (the Options default), v6, v7 and v8 (ConvLSTM):
+             kernels #1/#2 against their plain versions at the new
+             small-channel convs (Cin and Cout 1 to 6, both pads, float32
+             and bf16, forward and backward) and #3/#4 at C = 2; each
+             version served (build_evaluator, the scene loop at B=1,
+             float32, TF32 off, seeded weights): launches per frame-step,
+             the median ms a frame, card vs CPU; scripts/train_gru's main()
+             with no --gru_version (v5) at B=8, T=3, bf16 for an epoch:
+             finite losses, moved parameters, launches; v5's step ms,
+             frame-samples/s, memory and idle share, and its step at the
+             Options defaults (B=12, T=10, --gru_remat auto); one train step
+             of every other version at B=2, T=2, 640x192, bf16, and every
+             block step card vs CPU against float64 with pinned relus (phase
+             12's recipe); a summary line per version
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, each with its launches on the main path (for
-attend3_fwd those of phases 15 and 16 together), its time, its plain
+attend3_fwd those of phases 15 and 16 together; phase 21's main path,
+the family's serving and training, is added to every count and also
+given alone as ``family_launches``), its time, its plain
 version's (conv3x3_fwd: float32 serving at B=1, and under bf16_b8_* and
 f32_b8_* its bf16 and float32 bodies at a B=8 frame-step; conv3x3_dx and
 conv3x3_dw: bf16, and float32 under f32_b8_*; attend3_fwd and attend3_bwd:
@@ -221,32 +238,68 @@ FEATS = (32, 64, 128, 256)  # the fusion blocks' channels at scales 0-3
 
 
 def slice_convs(version: str, height: int, width: int):
-    """The kernel convs of one frame-step: (name, Cin, Cout, h, w, pad, act,
-    bias), from the block's own specs and per-scale predicate. v9's fusion
-    blocks have attention units in place of v10's conv units."""
-    from ssde_tpu_torch.models.recurrent import GRU_HIDDEN_SPECS, kernel_scales
+    """The kernel convs of one frame-step of the recurrent block: (name,
+    Cin, Cout, h, w, pad, act, bias), from the block's own specs and
+    per-scale predicate: the cell's convs (a GRU's three, an LSTM's two),
+    v1/v3's sigmoid heads, and the fusion blocks' conv units (v2_wo_att,
+    v10; v2, v8 and v9 have attention units in their place) and sigmoid
+    head. The external Head of v4/v6/v7 is :func:`head_convs`."""
+    from ssde_tpu_torch.models.recurrent import (GRU_HIDDEN_SPECS, block_version,
+                                                 kernel_scales, scale_shift)
 
-    spec, convs = GRU_HIDDEN_SPECS[version], []
-    for s, on in enumerate(kernel_scales(version)):
+    v = block_version(version)
+    spec, convs = GRU_HIDDEN_SPECS[v], []
+    for s, on in enumerate(kernel_scales(v)):
         if not on:
             continue
-        h, w, cx, hid, f = height >> s, width >> s, spec["in_ch"][s], spec["hid"][s], FEATS[s]
-        convs += [(f"s{s}.cell.x", cx, 3 * hid, h, w, "zero", "none", True),
-                  (f"s{s}.cell.h", hid, 2 * hid, h, w, "zero", "none", False),
-                  (f"s{s}.cell.reset_h", hid, hid, h, w, "zero", "none", False)]
-        if version != "v9":
-            for r, c in itertools.product((1, 2), (1, 2)):
-                convs.append((f"s{s}.rcu{r}.conv{c}", f, f, h, w, "zero",
-                              "relu" if c == 1 else "none", True))
-        convs.append((f"s{s}.head", f, 1, h, w, "reflect", "sigmoid", True))
+        d = scale_shift(v, s)
+        h, w, cx, hid = height >> d, width >> d, spec["in_ch"][s], spec["hid"][s]
+        if spec["cell"] == "lstm":
+            convs += [(f"s{s}.cell.x", cx, 4 * hid, h, w, "zero", "none", True),
+                      (f"s{s}.cell.h", hid, 4 * hid, h, w, "zero", "none", False)]
+        else:
+            convs += [(f"s{s}.cell.x", cx, 3 * hid, h, w, "zero", "none", True),
+                      (f"s{s}.cell.h", hid, 2 * hid, h, w, "zero", "none", False),
+                      (f"s{s}.cell.reset_h", hid, hid, h, w, "zero", "none", False)]
+        if v in ("v1", "v3"):
+            convs.append((f"s{s}.head", hid, 1, h, w, "reflect", "sigmoid", True))
+        elif v in ("v2", "v8", "v9", "v10"):
+            f = 2 if v == "v2" else FEATS[s]
+            if version in ("v2_wo_att", "v10"):
+                units = 3 if v == "v2" else 2
+                for r, c in itertools.product(range(1, units + 1), (1, 2)):
+                    convs.append((f"s{s}.rcu{r}.conv{c}", f, f, h, w, "zero",
+                                  "relu" if c == 1 else "none", True))
+            convs.append((f"s{s}.head", f, 1, h, w, "reflect", "sigmoid", True))
     return convs
 
 
-def slice_attention(version: str, height: int, width: int):
-    """The attend3 calls of one frame-step: (C, h, w) of each, 4 per fusion
-    block (2 units x 2 AttentionConvs) at every scale for v9, none for v10."""
-    if version != "v9":
+def head_convs(version: str, height: int, width: int, scales=(0, 1, 2, 3)):
+    """The kernel convs of the external Head of v4/v6/v7 at ``scales`` (all
+    four in training, scale 0 in serving), as :func:`slice_convs` lists
+    them; none for the other versions."""
+    from ssde_tpu_torch.models.recurrent import kernel_scales
+    from ssde_tpu_torch.train.steps_gru import HEAD_VERSIONS
+
+    if version not in HEAD_VERSIONS:
         return []
+    on = kernel_scales(version)
+    return [(f"head.s{s}", HEAD_VERSIONS[version][s], 1, height >> s, width >> s, "reflect",
+             "sigmoid", True) for s in scales if on[s]]
+
+
+def slice_attention(version: str, height: int, width: int):
+    """The attend3 calls of one frame-step: (C, h, w) of each, at every
+    scale 4 per GRUFusionBlock_v2 (2 units x 2 AttentionConvs) for v8 and
+    v9, 6 per GRUFusionBlock (3 units) at C = 2 for v2; none for the
+    versions without attention units."""
+    from ssde_tpu_torch.models.recurrent import block_version
+
+    v = block_version(version)
+    if version in ("v2_wo_att", "v10") or v not in ("v2", "v8", "v9"):
+        return []
+    if v == "v2":
+        return [(2, height >> s, width >> s) for s in range(4) for _ in range(6)]
     return [(f, height >> s, width >> s) for s, f in enumerate(FEATS) for _ in range(4)]
 
 
@@ -398,6 +451,12 @@ def main() -> None:
     finally:
         os.environ.pop("SSDE_SPLITS_DIR", None)
         shutil.rmtree(root, ignore_errors=True)
+    counts, errs = gru_family(dev, card)
+    for name, n in counts.items():  # phase 21's main path adds to each count
+        kernels[name]["launches"] += n
+        kernels[name]["family_launches"] = n
+    for (name, dt), err in errs.items():
+        kernels[name][f"family_{'f32' if dt == f32 else 'bf16'}_max_abs_err"] = err
     print(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s [{card}]")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -1188,10 +1247,14 @@ def _gru_counters():
             "photometric_bwd": photometric_bwd}
 
 
-def _block_launches(version, T):
-    """Kernel launches of the block unrolled over T frames with a backward:
-    conv3x3 forward, dx and dW, attend3 forward and backward."""
-    conv, attn = len(slice_convs(version, H, W)) * T, len(slice_attention(version, H, W)) * T
+def _block_launches(version, T, head_calls=1):
+    """Kernel launches of the block unrolled over T frames with a backward,
+    and of ``head_calls`` calls of the Head at all scales (once a train step,
+    on all B*T frames): conv3x3 forward, dx and dW, attend3 forward and
+    backward."""
+    conv = (len(slice_convs(version, H, W)) * T
+            + len(head_convs(version, H, W)) * head_calls)
+    attn = len(slice_attention(version, H, W)) * T
     return {"conv3x3_fwd": conv, "conv3x3_dx": conv, "conv3x3_dw": conv,
             "attend3_fwd": attn, "attend3_bwd": attn}
 
@@ -1341,35 +1404,45 @@ class _ReluPin:
             torch.nn.functional.relu, torch.Tensor.relu, common.conv = saved
 
 
-def _block_run(block, decs, r, q, device, dtype=None, pin=None):
-    """The block unrolled over len(decs) steps on ``device`` from h0:
-    (outputs and hidden states, gradients of every parameter and input) of
-    the scalar sum(disp * r) + sum(h_T * q), as float64 on the CPU. A
-    float64 ``dtype`` runs the plain convs at every scale; ``pin`` (a
-    :class:`_ReluPin`) records the relu masks of a float64 run and replays
-    them in a float32 one."""
+def _block_run(block, decs, r, q, device, dtype=None, pin=None, head=None):
+    """The block unrolled over len(decs) steps on ``device`` from its learned
+    initial state, the ``head`` (if given) on each step's hidden states:
+    (outputs and final states, gradients of every parameter and input) of
+    the scalar sum(disp * r) + sum(state * q) over every state tensor (h,
+    and c of an LSTM), as float64 on the CPU. A float64 ``dtype`` runs the
+    plain convs at every scale; ``pin`` (a :class:`_ReluPin`) records the
+    relu masks of a float64 run and replays them in a float32 one."""
     import torch
 
     dtype = dtype or torch.float32
     blk = copy.deepcopy(block).to(device, dtype)
+    hd = None if head is None else copy.deepcopy(head).to(device, dtype)
     if dtype == torch.float64:  # the kernels take float32 and bf16 only
         blk.kernel_scales = (False,) * blk.n_scales
-    ins = [{k: torch.from_numpy(v).to(device, dtype).requires_grad_() for k, v in d.items()}
-           for d in decs]
+        if hd is not None:
+            hd.kernel_scales = (False,) * len(hd.kernel_scales)
+    leaf = lambda v: torch.from_numpy(v).to(device, dtype).requires_grad_()  # noqa: E731
+    ins = [dict(enumerate(leaf(v) for v in d)) if isinstance(d, list)
+           else {k: leaf(v) for k, v in d.items()} for d in decs]
     hidden, outs, loss = blk.initial_state(1), {}, 0.0
     if pin:
         pin.start(replay=dtype != torch.float64)
     for t, d in enumerate(ins):
         with pin.active() if pin else contextlib.nullcontext():
-            hidden, disp = blk(d, hidden)
-        for k, v in disp.items():
+            hidden, disp = blk(list(d.values()) if isinstance(decs[t], list) else d, hidden)
+            if hd is not None:
+                disp = hd(hidden)
+        for k, v in (disp or {}).items():
             outs[f"t{t} {k}"] = v
             loss = loss + (v * torch.from_numpy(r[t][k]).to(device, dtype)).sum()
-    for s, h in enumerate(hidden):
-        outs[f"hidden {s}"] = h
-        loss = loss + (h * torch.from_numpy(q[s]).to(device, dtype)).sum()
+    states = [x for h in hidden for x in (h if isinstance(h, tuple) else (h,))]
+    for i, h in enumerate(states):
+        outs[f"hidden {i}"] = h
+        loss = loss + (h * torch.from_numpy(q[i]).to(device, dtype)).sum()
     loss.backward()
     grads = {n: p.grad for n, p in blk.named_parameters()}
+    if hd is not None:
+        grads.update({f"head.{n}": p.grad for n, p in hd.named_parameters()})
     grads.update({f"d t{t} {k}": v.grad for t, d in enumerate(ins) for k, v in d.items()})
     host = lambda m: {k: v.detach().cpu().double() for k, v in m.items()}  # noqa: E731
     return host(outs), host(grads)
@@ -1436,43 +1509,66 @@ def _gru_step_run(opts, batch, where, net, block_dtype, loss_dtype, select, pin=
             time.perf_counter() - t0)
 
 
-def gru_block_card_vs_cpu(dev, version=VERSION):
-    """The block alone (phase 12 (a) for v10, phase 16 for v9) over T=3 at
-    B=1, float32, card (kernels) vs CPU (plain versions) and each against
-    float64, the relu masks taken from the float64 run (gru_card_vs_cpu
-    says why)."""
+def _block_inputs(version, rng):
+    """One frame-step's block inputs at 640x192, B=1, N(0, 1), NCHW numpy:
+    the decoder's ``disp/{s}`` (1 channel for v1/v2, which read the
+    disparities; the pre-disp features for the others) or, for v5, the
+    encoder's 5 feature maps as a list."""
+    from ssde_tpu_torch.models.recurrent import block_version
+
+    v = block_version(version)
+    if v == "v5":
+        return [rng.randn(1, c, H >> (s + 1), W >> (s + 1)).astype(np.float32)
+                for s, c in enumerate((64, 64, 128, 256, 512))]
+    ch = (1,) * 4 if v in ("v1", "v2") else DEC_CH
+    return {f"disp/{s}": rng.randn(1, c, H >> s, W >> s).astype(np.float32)
+            for s, c in enumerate(ch)}
+
+
+def gru_block_card_vs_cpu(dev, version=VERSION, T=3):
+    """The block alone (phase 12 (a) for v10, phase 16 for v9, phase 21 for
+    the other versions at T=1) over T steps at B=1, float32, with the Head
+    of v4/v6/v7 on each step's hidden states, card (kernels) vs CPU (plain
+    versions) and each against float64, the relu masks taken from the
+    float64 run (gru_card_vs_cpu says why). Returns the worst of the
+    held errors."""
     import torch
 
-    from ssde_tpu_torch.models import make_gru
+    from ssde_tpu_torch.models import Head, make_gru
     from ssde_tpu_torch.models.common import init_weights_, sample_
-    from ssde_tpu_torch.models.recurrent import GRU_HIDDEN_SPECS
+    from ssde_tpu_torch.models.recurrent import (GRU_HIDDEN_SPECS, block_version,
+                                                 kernel_scales, scale_shift)
+    from ssde_tpu_torch.train.steps_gru import HEAD_VERSIONS
 
     torch.backends.cudnn.allow_tf32 = False
     counters = _gru_counters()
-    T = 3
     block = make_gru(version, H, W)
     gen = torch.Generator().manual_seed(SEED + 11)
     init_weights_(block, gen)
-    for s in range(block.n_scales):
-        sample_(block.unit(s).h0_layer1, gen, lambda t: t.normal_(0.0, 0.5, generator=gen))
+    for p in block.initial_parameters():
+        sample_(p, gen, lambda t: t.normal_(0.0, 0.5, generator=gen))
+    head = None
+    if version in HEAD_VERSIONS:
+        head = Head(HEAD_VERSIONS[version], kernel_scales(version))
+        init_weights_(head, gen)
     rng = np.random.RandomState(SEED + 12)
-    shape = lambda s, c: (1, c, H >> s, W >> s)  # noqa: E731
-    decs = [{f"disp/{s}": rng.randn(*shape(s, c)).astype(np.float32)
-             for s, c in enumerate(DEC_CH)} for _ in range(T)]
-    r = [{f"disp/{s}": rng.randn(*shape(s, 1)).astype(np.float32) for s in range(4)}
+    decs = [_block_inputs(version, rng) for _ in range(T)]
+    r = [{f"disp/{s}": rng.randn(1, 1, H >> s, W >> s).astype(np.float32) for s in range(4)}
          for _ in range(T)]
-    q = [rng.randn(*shape(s, c)).astype(np.float32)
-         for s, c in enumerate(GRU_HIDDEN_SPECS[version]["hid"])]
+    spec = GRU_HIDDEN_SPECS[block_version(version)]
+    q = [rng.randn(1, c, H >> scale_shift(version, s), W >> scale_shift(version, s)).astype(
+        np.float32) for s, c in enumerate(spec["hid"])
+        for _ in range(2 if spec["cell"] == "lstm" else 1)]
     pin = _ReluPin()
-    out64, g64 = _block_run(block, decs, r, q, "cpu", torch.float64, pin)
+    out64, g64 = _block_run(block, decs, r, q, "cpu", torch.float64, pin, head)
     before = {k: fn.launches for k, fn in counters.items()}
-    card_out, card_g = _block_run(block, decs, r, q, dev, pin=pin)
+    card_out, card_g = _block_run(block, decs, r, q, dev, pin=pin, head=head)
     torch.cuda.synchronize()
-    want = _block_launches(version, T)
+    want = _block_launches(version, T, head_calls=T)
     launched = {k: counters[k].launches - before[k] for k in want}
     flips = {"card": pin.flips}
     t0 = time.perf_counter()
-    cpu_out, cpu_g = _block_run(block, decs, r, q, "cpu", pin=pin)
+    cpu_out, cpu_g = _block_run(block, decs, r, q, "cpu", pin=pin, head=head)
     cpu_s = time.perf_counter() - t0
     flips["CPU"] = pin.flips
     # each gradient against its own max, but an attention conv's key bias
@@ -1502,9 +1598,11 @@ def gru_block_card_vs_cpu(dev, version=VERSION):
           f"(card), {flips['CPU']} (CPU) of {sum(m.numel() for m in pin.masks)}")
     if launched != want:
         fail(f"gru block {version}: launches {launched}, expected {want}")
-    if not max(worst[0], worst_g[0], *e64.values(), *o64.values()) <= TOL_CARD_VS_CPU:
+    held = max(worst[0], worst_g[0], *e64.values(), *o64.values())
+    if not held <= TOL_CARD_VS_CPU:
         fail(f"gru block {version}: card and CPU disagree")
-    del block
+    del block, head
+    return held
 
 
 def gru_card_vs_cpu(dev):
@@ -1593,7 +1691,8 @@ def gru_card_vs_cpu(dev):
 
 def gru_step_times(dev, card, version):
     """The GRU train step's time, memory and idle share at B=8, T=3, bf16
-    (phase 13 for v10, 17 for v9); its profile table is written to a file."""
+    (phase 13 for v10, 17 for v9, 21 for v5); its profile table is written
+    to a file. Returns (ms, frame-samples/s, peak GiB, idle share)."""
     import torch
 
     from ssde_tpu_torch.config import Options
@@ -1645,6 +1744,7 @@ def gru_step_times(dev, card, version):
         print("   ", line[:160])
     del models, state, batch, prof
     torch.cuda.empty_cache()
+    return ms, frames * 1e3 / ms, peak, 1 - busy / (IDLE_STEPS * ms)
 
 
 def gru_times(dev, card):
@@ -2025,8 +2125,16 @@ def default_size_steps(dev, card):
     at the Options defaults, B=12, T=10, 640x192, bf16, for v10 and v9 with
     the checkpointing --gru_remat auto picks at B*T = 120 (the JAX
     _remat_mode thresholds), then v10 without it (v9 without it does not fit
-    the card): one warm-up step and two timed ones (CUDA events), the peak
-    memory over all three, finite losses."""
+    the card)."""
+    for version, remat in (("v10", "auto"), ("v9", "auto"), ("v10", "0")):
+        default_size_step(dev, card, version, remat)
+
+
+def default_size_step(dev, card, version, remat):
+    """The GRU trainer's step at the Options defaults for ``version`` under
+    ``--gru_remat remat``: one warm-up step and two timed ones (CUDA
+    events), the peak memory over all three, finite losses. Returns (ms of
+    the timed steps, peak GiB)."""
     import gc
 
     import torch
@@ -2038,46 +2146,46 @@ def default_size_steps(dev, card):
 
     torch.backends.cudnn.allow_tf32 = True  # the training configuration
     counters = _gru_counters()
-    for version, remat in (("v10", "auto"), ("v9", "auto"), ("v10", "0")):
-        opts = MonodepthOptions().parse(
-            ["--gru_version", version, "--synthetic_data", "--num_epochs", "1",
-             "--save_frequency", "2", "--num_workers", "4", "--gru_remat", remat])
-        if (opts.batch_size, opts.len_sequence, opts.height, opts.width,
-                opts.compute_dtype) != (12, 10, H, W, "bfloat16"):
-            fail(f"unexpected Options defaults {opts}")
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        trainer = build_trainer(opts, dev)
-        B = opts.batch_size
-        batch = to_device(collate([trainer.train_dataset[i] for i in range(B)]), dev)
-        gen = torch.Generator(dev).manual_seed(SEED)
-        ms, losses = [], []
-        for i in range(3):  # one warm-up step, two timed
-            for fn in counters.values():
-                fn.launches = 0
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            out = trainer.step_fn(trainer.models, trainer.state, batch, gen)
-            end.record()
-            losses.append(float(out["loss"]))
-            torch.cuda.synchronize()
-            ms.append(start.elapsed_time(end))
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
-        frames = B * opts.len_sequence
-        print(f"defaults: gru {version} train step B={B} T={opts.len_sequence} {H}x{W} bf16, "
-              f"--gru_remat {remat} ({remat_mode(opts)!r}): {ms[1]:.1f} and {ms[2]:.1f} ms "
-              f"after a {ms[0]:.1f} ms warm-up ({frames * 2e3 / (ms[1] + ms[2]):.2f} "
-              f"frame-samples/s); peak memory {peak:.2f} GiB of "
-              f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.2f}; losses "
-              + " ".join(f"{v:.5f}" for v in losses) + f"; launches per step {launched} "
-              f"[{card}]")
-        if not all(np.isfinite(losses)):
-            fail(f"defaults: gru {version} --gru_remat {remat}: a loss is not finite")
-        del trainer, batch, out
+    opts = MonodepthOptions().parse(
+        ["--gru_version", version, "--synthetic_data", "--num_epochs", "1",
+         "--save_frequency", "2", "--num_workers", "4", "--gru_remat", remat])
+    if (opts.batch_size, opts.len_sequence, opts.height, opts.width,
+            opts.compute_dtype) != (12, 10, H, W, "bfloat16"):
+        fail(f"unexpected Options defaults {opts}")
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = build_trainer(opts, dev)
+    B = opts.batch_size
+    batch = to_device(collate([trainer.train_dataset[i] for i in range(B)]), dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    ms, losses = [], []
+    for i in range(3):  # one warm-up step, two timed
+        for fn in counters.values():
+            fn.launches = 0
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = trainer.step_fn(trainer.models, trainer.state, batch, gen)
+        end.record()
+        losses.append(float(out["loss"]))
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    frames = B * opts.len_sequence
+    print(f"defaults: gru {version} train step B={B} T={opts.len_sequence} {H}x{W} bf16, "
+          f"--gru_remat {remat} ({remat_mode(opts)!r}): {ms[1]:.1f} and {ms[2]:.1f} ms "
+          f"after a {ms[0]:.1f} ms warm-up ({frames * 2e3 / (ms[1] + ms[2]):.2f} "
+          f"frame-samples/s); peak memory {peak:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.2f}; losses "
+          + " ".join(f"{v:.5f}" for v in losses) + f"; launches per step {launched} "
+          f"[{card}]")
+    if not all(np.isfinite(losses)):
+        fail(f"defaults: gru {version} --gru_remat {remat}: a loss is not finite")
+    del trainer, batch, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms[1:], peak
 
 
 # ============================================================ KITTI training
@@ -2631,6 +2739,347 @@ def mono_eval(dev, card, root, data, splits, weights):
     launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
     print(f"eval: phase 20 took {time.perf_counter() - phase0:.1f} s; launches of the port's "
           f"kernels in it {launched} (its networks run in cuDNN) [{card}]")
+
+
+
+# ============================================== the rest of the GRU family
+
+FAMILY = ("v1", "v2", "v2_wo_att", "v3", "v4", "v5", "v6", "v7", "v8")
+FAMILY_FRAMES = 6  # serving: a scene of this many frames at B=1
+FAMILY_B, FAMILY_T = 2, 2  # one train step of each version but v5
+# the new small-channel convs: (Cin, Cout) of v1's and v2's cells, conv
+# units and heads, and of their dx (the same conv from Cout to Cin)
+FAMILY_CONVS = ((1, 3), (1, 2), (1, 1), (2, 6), (2, 4), (2, 2), (2, 1))
+
+
+def family_kernels(dev):
+    """Phase 21 (a): kernels #1 and #2 against their plain versions at the
+    family's small-channel convs (FAMILY_CONVS and their transposes, Cin 1
+    to 6, Cout 1 to 6) at 192x640 (B=1) and 37x45 (B=2), zero and reflect
+    pad, float32 and bf16: the forward with acts none, relu and sigmoid,
+    bias on and off (phase 2's bounds), the backward (dx, dW, db) with the
+    acts of those convs (phase 10's bounds, float32 against float64); and
+    #3/#4 at C = 2, v2's attention units, at its four scales (B=1) and
+    37x45 (B=2), phase 14's bounds. Returns the worst absolute errors."""
+    import torch
+
+    from ssde_tpu_torch.ops.attention_win import attend3_bwd, attend3_fwd, attend3_reference
+    from ssde_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_reference
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    f32, bf16 = torch.float32, torch.bfloat16
+    sizes = ((1, H, W), (2, 37, 45))
+    pairs = sorted(set(FAMILY_CONVS) | {(o, i) for i, o in FAMILY_CONVS})
+    worst, n = {}, 0
+    keep = lambda k, v: worst.__setitem__(k, max(worst.get(k, 0.0), v))  # noqa: E731
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for (cin, cout), (B, h, w) in itertools.product(pairs, sizes):
+            x = torch.randn(B, cin, h, w, device=dev, generator=gen)
+            wt = torch.randn(cout, cin, 3, 3, device=dev, generator=gen) / (3 * cin ** 0.5)
+            bt = torch.randn(cout, device=dev, generator=gen) * 0.1
+            for dt, pad, act, has_b in itertools.product(
+                    (f32, bf16), ("zero", "reflect"), ("none", "relu", "sigmoid"), (True, False)):
+                xi, wi, bi = x.to(dt), wt.to(dt), bt.to(dt) if has_b else None
+                out = conv3x3(xi, wi, bi, pad, act)
+                ref = conv3x3_reference(xi.float(), wi.float(),
+                                        None if bi is None else bi.float(), pad, act)
+                err = (out.float() - ref).abs().max().item()
+                rel = err / max(ref.abs().max().item(), 1e-12)
+                keep(("conv3x3_fwd", dt), err)
+                keep(("rel fwd", dt), rel)
+                n += 1
+                if out.dtype != dt or rel > (TOL_F32 if dt == f32 else TOL_BF16):
+                    fail(f"family kernels: {cin}->{cout} {h}x{w} B={B} {dt} {pad} {act} "
+                         f"bias={has_b}: rel {rel:.3e}")
+    print(f"family kernels: conv3x3 forward, {n} cases ({len(pairs)} channel pairs x "
+          f"{len(sizes)} sizes x pad x act x bias x dtype) against the plain version: worst rel "
+          f"f32 {worst[('rel fwd', f32)]:.3e} (bound {TOL_F32}), bf16 "
+          f"{worst[('rel fwd', bf16)]:.3e} (bound {TOL_BF16})")
+    n = 0
+    for (cin, cout), (B, h, w), pad in itertools.product(FAMILY_CONVS, sizes, ("zero", "reflect")):
+        act = "sigmoid" if cout == 1 else "relu"
+        x = torch.randn(B, cin, h, w, device=dev, generator=gen)
+        wt = torch.randn(cout, cin, 3, 3, device=dev, generator=gen) / (3 * cin ** 0.5)
+        bt = torch.randn(cout, device=dev, generator=gen) * 0.1
+        g = torch.randn(B, cout, h, w, device=dev, generator=gen)
+        for dt in (f32, bf16):
+            got, want, _ = _conv_bwd(x, wt, bt, g, pad, act, dt)
+            for name, a, r in zip(("conv3x3_dx", "conv3x3_dw", "db"), got, want):
+                if a.dtype != dt or a.shape != r.shape:
+                    fail(f"family kernels: {name} {a.dtype} {tuple(a.shape)}")
+                keep((name, dt), (a.to(r.dtype) - r).abs().max().item())
+                rel = _rel(a.to(r.dtype), r)
+                keep(("rel bwd", dt), rel)
+                if rel > (TOL_BWD_F32 if dt == f32 else TOL_BWD_BF16):
+                    fail(f"family kernels: {name} of {cin}->{cout} {h}x{w} B={B} {pad} {act} "
+                         f"{dt}: {rel:.3e} of max")
+            n += 1
+    print(f"family kernels: conv3x3 backward (dx, dW, db), {n} cases against autograd of the "
+          f"plain version (float32 run against float64, bf16 against float32): worst of max "
+          f"f32 {worst[('rel bwd', f32)]:.3e} (bound {TOL_BWD_F32}), bf16 "
+          f"{worst[('rel bwd', bf16)]:.3e} (bound {TOL_BWD_BF16})")
+    n = 0
+    for B, h, w in [(1, H >> s, W >> s) for s in range(4)] + [(2, 37, 45)]:
+        q, kp, vp, rel, g = _attn_operands(dev, B, 2, h, w, gen)
+        for dt in (f32, bf16):
+            ops = [t.to(dt) for t in (q, kp, vp)]
+            out = attend3_fwd(*ops, rel)
+            grads = attend3_bwd(*ops, rel, g.to(dt))
+            if dt == f32:
+                ref = attend3_reference(q, kp, vp, rel)
+                e_fwd = (out - ref).abs().max().item()
+                want = _attn_plain_grads(*(t.double() for t in (q, kp, vp, rel, g)))
+                e_rel = max(_rel(a.double(), b) for a, b in zip(grads, want))
+                ok = e_fwd <= TOL_ATTN_FWD and e_rel <= TOL_ATTN_GRAD
+                keep(("attend3_fwd", dt), e_fwd)
+            else:
+                f = [t.float() for t in ops]
+                ref = attend3_reference(*f, rel)
+                e_fwd = _rel(out.float(), ref)
+                want = _attn_plain_grads(*f, rel, g.to(dt).float())
+                e_rel = max(_rel(a.float(), b) for a, b in zip(grads, want))
+                ok = e_fwd <= TOL_ATTN_BF16 and e_rel <= TOL_ATTN_BF16
+                keep(("attend3_fwd", dt), (out.float() - ref).abs().max().item())
+            keep(("attend3_bwd", dt), max((a.to(b.dtype) - b).abs().max().item()
+                                          for a, b in zip(grads, want)))
+            keep(("rel attn", dt), e_rel)
+            n += 1
+            if not ok:
+                fail(f"family kernels: attend3 at C=2, {h}x{w} B={B} {dt}: forward {e_fwd:.3e},"
+                     f" gradients {e_rel:.3e} of max")
+    print(f"family kernels: attend3 forward and backward at C=2, {n} cases: worst gradient "
+          f"of max f32 {worst[('rel attn', f32)]:.3e} (bound {TOL_ATTN_GRAD}, forward "
+          f"{worst[('attend3_fwd', f32)]:.3e} abs, bound {TOL_ATTN_FWD}), bf16 "
+          f"{worst[('rel attn', bf16)]:.3e} (bound {TOL_ATTN_BF16}); phase 21 (a) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return {k: v for k, v in worst.items() if k[0] in _gru_counters()}
+
+
+def family_serving(dev, card, version):
+    """Phase 21 (b): ``version`` streaming depth through build_evaluator and
+    the scene loop at B=1, float32 (TF32 off), seeded random weights: the
+    kernels' launches per frame-step, finite sigmoid disparities, the
+    per-frame median ms (upload, step, disparity back; host clock) and
+    card vs CPU (the plain path) over 2 frames, phase 4's bound relative to
+    the largest value. Returns (launches, median ms, card vs CPU)."""
+    import torch
+
+    from ssde_tpu_torch.config import Options
+    from ssde_tpu_torch.data.synthetic import scene_frames
+    from ssde_tpu_torch.eval.gru_runners import GRUStreamEvaluator
+    from ssde_tpu_torch.models.common import sample_
+    from ssde_tpu_torch.models.resnet import randomize_bn_stats_
+    from ssde_tpu_torch.scripts.evaluate_depth_gru_fusion import build_evaluator
+
+    opt = Options()
+    opt.gru_version, opt.height, opt.width = version, H, W
+    ev = build_evaluator(opt, dev, seed=SEED)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    randomize_bn_stats_(ev.models.encoder, gen)
+    for p in ev.models.h0_parameters():
+        sample_(p, gen, lambda t: t.normal_(0.0, 0.1, generator=gen))
+    scene = scene_frames(H, W, FAMILY_FRAMES, batch=1, seed=SEED)
+    counters = _gru_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    out = ev.predict_scene(scene)
+    torch.cuda.synchronize()
+    launched = {k: fn.launches for k, fn in counters.items()}
+    per_frame = {"conv3x3_fwd": len(slice_convs(version, H, W))
+                 + len(head_convs(version, H, W, (0,))),
+                 "attend3_fwd": len(slice_attention(version, H, W))}
+    want = {k: FAMILY_FRAMES * per_frame.get(k, 0) for k in counters}
+    if launched != want:
+        fail(f"family serving {version}: launches {launched}, expected {want}")
+    for d in out:
+        if d.shape != (1, H, W) or not np.isfinite(d).all() or not 0 < d.min() <= d.max() < 1:
+            fail(f"family serving {version}: disparity {d.shape} not finite in (0, 1)")
+    # the recurrence carries state: the hidden states move from h0. (The
+    # disparity need not move: at seed 0, v2's scale-0 fusion block sums
+    # two 2-channel attention units to a map that is negative everywhere,
+    # so its third unit's relu passes nothing, and its disparity is the
+    # same for every frame, on the CPU as on the card.)
+    lat, carry = [], ev.initial_carry(1)
+    h0 = [t.clone() for h in carry[0] for t in (h if isinstance(h, tuple) else (h,))]
+    for f in scene + scene:
+        t0 = time.perf_counter()
+        carry, disp = ev.step(carry, ev.to_device(f))
+        ev.to_host(disp)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(lat[1:]))
+    hidden = [t for h in carry[0] for t in (h if isinstance(h, tuple) else (h,))]
+    if any(torch.equal(a, b) for a, b in zip(hidden, h0)):
+        fail(f"family serving {version}: a hidden state did not move over the scene")
+    spread = float(np.abs(np.stack(out[1:]) - out[0]).max())
+    cpu = copy.deepcopy(ev.models)
+    for m in cpu.modules():
+        m.cpu()
+    on_cpu = GRUStreamEvaluator(cpu).predict_scene(scene[:2])
+    delta = max(np.abs(a - b).max() / np.abs(b).max() for a, b in zip(out[:2], on_cpu))
+    print(f"family serving {version}: {FAMILY_FRAMES} frames at B=1, {H}x{W}, float32; "
+          f"launches per frame-step {per_frame}; median {ms:.3f} ms a frame over "
+          f"{len(lat) - 1} (upload, step, disparity back; host clock); the frames' "
+          f"disparities differ by up to {spread:.3e}; card vs CPU "
+          f"{delta:.3e} of the largest over 2 frames (bound {TOL_CARD_VS_CPU}) [{card}]")
+    if not delta <= TOL_CARD_VS_CPU:
+        fail(f"family serving {version}: card and CPU disagree: {delta:.3e}")
+    del ev, cpu
+    torch.cuda.empty_cache()
+    return launched, ms, delta
+
+
+def family_v5_main(dev, card):
+    """Phase 21 (c): scripts/train_gru's main() with no --gru_version (v5,
+    the Options default) at B=8, T=3, bf16, synthetic data, for an epoch in
+    a temporary log directory: finite losses, every trained parameter moved
+    from its seeded start, the kernels launched per step and per val().
+    Returns the launches."""
+    import torch
+
+    from ssde_tpu_torch.scripts import train_gru
+    from ssde_tpu_torch.train.steps_gru import build_gru_models
+    from ssde_tpu_torch.train.trainer_gru import GRUTrainer
+
+    torch.backends.cudnn.allow_tf32 = True  # the training configuration
+    counters = _gru_counters()
+    log = tempfile.mkdtemp(prefix="ssde_v5_")
+    argv = ["--synthetic_data", "--height", str(H), "--width", str(W), "--batch_size",
+            str(GRU_B), "--len_sequence", str(GRU_T), "--num_epochs", "1", "--save_frequency",
+            "2", "--num_workers", "4", "--log_frequency", "2", "--log_dir", log]
+    histories, run_epoch = [], GRUTrainer.run_epoch
+    GRUTrainer.run_epoch = lambda self: histories.append(run_epoch(self)) or histories[-1]
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer = train_gru.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        GRUTrainer.run_epoch = run_epoch
+        shutil.rmtree(log, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    opt = trainer.opt
+    steps = len(histories[0])
+    n_val = sum(1 for i in range(steps) if i % opt.log_frequency == 0)
+    per_step = {**_block_launches("v5", GRU_T), "warp_family_fwd": 2, "photometric_fwd": 1,
+                "photometric_bwd": 1}
+    per_val = {k: v if k in ("conv3x3_fwd", "attend3_fwd") else 0 for k, v in per_step.items()}
+    per_val.update(warp_family_fwd=2, photometric_fwd=1)
+    want = {k: steps * per_step[k] + n_val * per_val[k] for k in counters}
+    losses = [float(h["loss"]) for h in histories[0]]
+    fresh = build_gru_models(opt, "cpu", torch.Generator().manual_seed(trainer.seed))
+    params = list(trainer.models.parameters())
+    moved = sum(not torch.equal(a, b.detach().cpu()) for a, b in zip(fresh.parameters(), params))
+    print(f"family v5: train_gru.main() with no --gru_version: {opt.gru_version}, "
+          f"B={opt.batch_size}, T={opt.len_sequence}, {H}x{W}, {opt.compute_dtype}; {steps} "
+          f"steps + {n_val} val() in {wall:.1f} s (build included); losses "
+          + " ".join(f"{v:.5f}" for v in losses) + f"; {moved} of {len(params)} trained "
+          f"parameters moved; launches {counts}, expected per step {per_step}, per val() "
+          f"{per_val} [{card}]")
+    if opt.gru_version != "v5" or trainer.models.gru.version != "v5":
+        fail(f"family v5: main() trained {opt.gru_version}")
+    if counts != want or not np.isfinite(losses).all() or moved != len(params):
+        fail(f"family v5: launches {counts} (expected {want}), losses {losses}, {moved} of "
+             f"{len(params)} parameters moved")
+    del trainer, fresh
+    torch.cuda.empty_cache()
+    return counts
+
+
+def family_train_step(dev, card, version):
+    """Phase 21 (d): one train step of ``version`` at B=2, T=2, 640x192,
+    bf16, synthetic data: a finite loss and the kernels' launches. Returns
+    (launches, loss, seconds of the first step)."""
+    import torch
+
+    from ssde_tpu_torch.config import Options
+    from ssde_tpu_torch.data.pipeline import collate, to_device
+    from ssde_tpu_torch.data.synthetic import SyntheticSeqDataset
+    from ssde_tpu_torch.train.state import TrainState
+    from ssde_tpu_torch.train.steps_gru import build_gru_models, train_step
+
+    torch.backends.cudnn.allow_tf32 = True  # the training configuration
+    opts = Options(height=H, width=W, batch_size=FAMILY_B, len_sequence=FAMILY_T,
+                   gru_version=version)
+    models = build_gru_models(opts, dev, torch.Generator().manual_seed(SEED))
+    state = TrainState(models.parameters(), opts.learning_rate, 0, 1000)
+    ds = SyntheticSeqDataset(H, W, n=FAMILY_T, length=FAMILY_B, seed=SEED)
+    batch = to_device(collate([ds[i] for i in range(FAMILY_B)]), dev)
+    counters = _gru_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    loss = float(train_step(models, state, batch, torch.Generator(dev).manual_seed(SEED))["loss"])
+    secs = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in counters.items()}
+    want = {**_block_launches(version, FAMILY_T), "warp_family_fwd": 2, "photometric_fwd": 1,
+            "photometric_bwd": 1}
+    if launched != want or not np.isfinite(loss):
+        fail(f"family train {version}: loss {loss}, launches {launched}, expected {want}")
+    del models, state, batch
+    torch.cuda.empty_cache()
+    return launched, loss, secs
+
+
+def gru_family(dev, card):
+    """Phase 21: the rest of the GRU family, v1-v8 (v6 is v4's wiring,
+    v2_wo_att v2's without attention). (a) the kernels at the family's new
+    shapes; (b) serving of every version; (c) v5, the default, trained by
+    scripts/train_gru's main(), its step's ms, frame-samples/s, memory and
+    idle share at B=8, T=3, and its step at the Options defaults (B=12,
+    T=10, --gru_remat auto); (d) one train step of each other version at
+    B=2, T=2 and each block step card vs CPU (v6 shares v4's block). The
+    main path's launches are those of (b), (c) and (d). Returns (the main
+    path's launches, the worst absolute errors of (a))."""
+    import torch
+
+    phase0 = time.perf_counter()
+    errs = family_kernels(dev)
+    counters = _gru_counters()
+    total = dict.fromkeys(counters, 0)
+    add = lambda c: total.update({k: total[k] + v for k, v in c.items()})  # noqa: E731
+    rows = {v: {} for v in FAMILY}
+    for v in FAMILY:
+        launched, rows[v]["serve_ms"], rows[v]["serve_cpu"] = family_serving(dev, card, v)
+        add(launched)
+    add(family_v5_main(dev, card))
+    ms, rate, peak, idle = gru_step_times(dev, card, "v5")
+    defaults, peak_defaults = default_size_step(dev, card, "v5", "auto")
+    rows["v5"]["train"] = (f"B={GRU_B} T={GRU_T} {ms:.1f} ms, {rate:.1f} frame-samples/s, "
+                           f"{peak:.2f} GiB, idle {idle:.1%}; B=12 T=10 "
+                           f"{np.mean(defaults):.1f} ms, {peak_defaults:.2f} GiB")
+    for v in FAMILY:
+        if v != "v5":
+            launched, loss, secs = family_train_step(dev, card, v)
+            add(launched)
+            rows[v]["train"] = f"B={FAMILY_B} T={FAMILY_T} loss {loss:.5f} ({secs:.1f} s)"
+        if v != "v6":  # v4's block
+            rows[v]["block"] = gru_block_card_vs_cpu(dev, v, T=1)
+    print(f"gru family summary [{card}]:")
+    for v in FAMILY:
+        r = rows[v]
+        conv = len(slice_convs(v, H, W)) + len(head_convs(v, H, W, (0,)))
+        train = {k: n for k, n in _block_launches(v, 1, head_calls=0).items()
+                 if n and k.endswith("fwd")}
+        print(f"  {v:9s} serving {r['serve_ms']:8.3f} ms a frame (B=1, float32), card vs CPU "
+              f"{r['serve_cpu']:.2e}; kernel launches per serving frame-step conv3x3 {conv}, "
+              f"attend3 {len(slice_attention(v, H, W))}; per training frame-step {train} "
+              f"(+ {len(head_convs(v, H, W))} Head convs a step); train {r['train']}; block "
+              f"card vs CPU " + (f"{r['block']:.2e}" if "block" in r else "(v4's)"))
+    missing = [k for k, n in total.items() if not n]
+    print(f"gru family: main path launches {total}; phase 21 took "
+          f"{time.perf_counter() - phase0:.1f} s [{card}]")
+    if missing:
+        fail(f"gru family: {missing} launched no time on the main path")
+    torch.cuda.empty_cache()
+    return total, errs
 
 
 if __name__ == "__main__":

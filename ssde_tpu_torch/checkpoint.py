@@ -2,11 +2,12 @@
 the reference's per-module ``.pth`` folder.
 
 ``encoder_from_flax`` (the depth encoder and the 6-channel pose encoder),
-``depth_from_flax``, ``pose_decoder_from_flax`` and ``gru_from_flax`` invert
-``ssde_tpu/checkpoint.py``'s ``convert_resnet_encoder`` (:132),
-``convert_depth_decoder`` (:187), ``convert_pose_decoder`` (:216) and
-``convert_gru_blocks`` (:312): conv
-kernels HWIO -> OIHW, ``h0`` (1, H, W, C) -> (1, C, H, W), BatchNorm
+``depth_from_flax``, ``pose_decoder_from_flax``, ``gru_from_flax`` and
+``head_from_flax`` invert ``ssde_tpu/checkpoint.py``'s
+``convert_resnet_encoder`` (:132), ``convert_depth_decoder`` (:187),
+``convert_pose_decoder`` (:216), ``convert_gru_blocks`` (:312) and
+``convert_head`` (:350): conv kernels HWIO -> OIHW, ``h0`` and ``c0``
+(1, H, W, C) -> (1, C, H, W), BatchNorm
 ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/``running_mean``/
 ``running_var``. Trees are nested dicts of numpy arrays; nothing here
 imports flax.
@@ -124,32 +125,53 @@ def _attention_conv(sd: StateDict, prefix: str, p: Mapping) -> None:
         sd[f"{prefix}.{rel}"] = _t(r.reshape((r.shape[0] if r.ndim == 2 else 1,) + shape))
 
 
+def _conv(sd: StateDict, prefix: str, p: Mapping) -> None:
+    """A flax conv's ``kernel`` and ``bias`` -> ``prefix.weight``/``.bias``."""
+    sd[f"{prefix}.weight"] = _oihw(p["kernel"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
 def gru_from_flax(params: Mapping) -> StateDict:
     """``ssde_tpu.models.ConvGRUBlocks`` params -> ``ConvGRUBlocks``
-    state_dict (GRU cells; fusion blocks with residual conv units, or with
-    residual attention units, ``_convert_rcu`` :299-309)."""
+    state_dict, every version: the units' ``h0`` and ``c0`` and their GRU
+    (``cgru_1``) or LSTM (``clstm_1``) cell, the block's own ``conv3x3_{s}``
+    heads (v1, v3), and the fusion blocks (``GRUFusionBlock``'s three
+    residual units or ``GRUFusionBlock_v2``'s two, conv or attention units,
+    ``_convert_rcu`` :299-309, and the ``conv3x3`` head)."""
     sd: StateDict = {}
     for name in sorted(params):
         p = params[name]
         if name.startswith("cgru_"):
-            sd[f"{name}.h0_layer1"] = _t(np.transpose(np.asarray(p["h0"]), (0, 3, 1, 2)))
+            for init in ("h0", "c0"):
+                if init in p:
+                    sd[f"{name}.{init}_layer1"] = _t(np.transpose(np.asarray(p[init]),
+                                                                  (0, 3, 1, 2)))
+            cell = "clstm_1" if "conv" in p["cell"] else "cgru_1"
             for conv in sorted(p["cell"]):
-                sd[f"{name}.cgru_1.{conv}.weight"] = _oihw(p["cell"][conv]["kernel"])
-                sd[f"{name}.cgru_1.{conv}.bias"] = _t(p["cell"][conv]["bias"])
+                _conv(sd, f"{name}.{cell}.{conv}", p["cell"][conv])
+        elif name.startswith("conv3x3_"):
+            _conv(sd, f"{name}.conv", p["conv"])
         elif name.startswith("fusion_"):
             for rcu in sorted(k for k in p if k.startswith("resConfUnit")):
                 for i in (1, 2):
                     if f"atten{i}" in p[rcu]:
                         _attention_conv(sd, f"{name}.{rcu}.atten{i}", p[rcu][f"atten{i}"])
-                        continue
-                    c = p[rcu][f"conv{i}"]
-                    sd[f"{name}.{rcu}.conv{i}.weight"] = _oihw(c["kernel"])
-                    sd[f"{name}.{rcu}.conv{i}.bias"] = _t(c["bias"])
-            head = p["conv3x3"]["conv"]
-            sd[f"{name}.conv3x3.conv.weight"] = _oihw(head["kernel"])
-            sd[f"{name}.conv3x3.conv.bias"] = _t(head["bias"])
+                    else:
+                        _conv(sd, f"{name}.{rcu}.conv{i}", p[rcu][f"conv{i}"])
+            _conv(sd, f"{name}.conv3x3.conv", p["conv3x3"]["conv"])
         else:
             raise KeyError(f"unexpected GRU tree entry {name!r}")
+    return sd
+
+
+def head_from_flax(params: Mapping) -> StateDict:
+    """``ssde_tpu.models.Head`` params -> ``Head`` state_dict
+    (``conv3x3_{s}.conv``; inverse of ``convert_head``, :350-358)."""
+    sd: StateDict = {}
+    for name in sorted(params):
+        if not name.startswith("conv3x3_"):
+            raise KeyError(f"unexpected head tree entry {name!r}")
+        _conv(sd, f"{name}.conv", params[name]["conv"])
     return sd
 
 
@@ -220,10 +242,11 @@ def load_folder(folder: str, models, names: Sequence[str] = MODULE_NAMES
 
 
 def load_reference_folder(folder: str, models) -> Dict[str, int]:
-    """Load a reference-format serving folder ({encoder,depth,gru}.pth) into
-    ``models`` (a :class:`ssde_tpu_torch.train.steps_gru.GRUModels`);
-    returns the encoder's embedded entries."""
-    return load_folder(folder, models, ("encoder", "depth", "gru"))[0]
+    """Load a reference-format serving folder ({encoder,depth,gru}.pth, and
+    head.pth for the versions with a ``Head``) into ``models`` (a
+    :class:`ssde_tpu_torch.train.steps_gru.GRUModels`); returns the
+    encoder's embedded entries."""
+    return load_folder(folder, models, ("encoder", "depth", "gru", "head"))[0]
 
 
 def load_eval_folder(folder: str, models, names: Sequence[str]) -> Dict[str, int]:

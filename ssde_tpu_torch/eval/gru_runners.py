@@ -12,8 +12,13 @@ Three protocols share one per-frame step with carried hidden state:
 The public contract is the JAX runner's: numpy NHWC frames (B, H, W, 3) in
 [0, 1] go in, (B, H, W) sigmoid disparity comes out. Frames move to the
 models' device and to NCHW there; the step runs under
-``torch.inference_mode()``. Only the v8/v9/v10 block contract (the block
-returns its own disparity) is ported.
+``torch.inference_mode()``. Every version's step contract is the JAX
+runner's (``ssde_tpu/eval/gru_runners.py:59-97``): v5 runs the decoder on
+the encoder features plus the mean of the hidden states before and after
+the step; v4/v6 add that mean to the decoder outputs and run the ``Head``
+at scale 0; v7 feeds the block the mean of the current and previous
+hidden states and runs the ``Head`` on the new ones at scale 0; the other
+versions' blocks make the disparity themselves.
 """
 
 from __future__ import annotations
@@ -50,11 +55,24 @@ class GRUStreamEvaluator:
 
     @torch.inference_mode()
     def step(self, carry, image: torch.Tensor):
-        """One frame: NCHW image on the device -> (carry', (B, 1, H, W) disp)."""
-        m = self.models
-        hidden, _ = carry
+        """One frame: NCHW image on the device -> (carry', (B, 1, H, W) disp);
+        the carry is (hidden, the hidden state before it)."""
+        m, v = self.models, self.version
+        hidden, hidden_prev = carry
         feats = m.encoder(image)
+        if v == "v5":
+            h_new, _ = m.gru(feats, hidden)
+            fused = [f + (h + hn) / 2 for f, h, hn in zip(feats, hidden, h_new)]
+            return (h_new, hidden), m.depth(fused)["disp/0"]
         dec = m.depth(feats, pre_disp=self.pre_disp)
+        if v in ("v4", "v6"):
+            h_new, _ = m.gru(dec, hidden)
+            # the head reads scale 0 only
+            fused = {"disp/0": dec["disp/0"] + (h_new[0] + hidden[0]) / 2}
+            return (h_new, hidden), m.head(fused, zero_scale_only=True)["disp/0"]
+        if v == "v7":
+            h_new, _ = m.gru(dec, [(c + p) / 2 for c, p in zip(hidden, hidden_prev)])
+            return (h_new, hidden), m.head(h_new, zero_scale_only=True)["disp/0"]
         h_new, disp = m.gru(dec, hidden)
         return (h_new, hidden), disp["disp/0"]
 

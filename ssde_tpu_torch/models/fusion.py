@@ -1,16 +1,18 @@
 """Fusion blocks of the ConvGRU heads on NCHW (counterpart of
 ``ssde_tpu/models/fusion.py``).
 
-What GRU v9 and v10 run: ``GRUFusionBlock_v2``, with residual attention
-units (v9) or residual conv units (v10, and v9 with ``--disable_attention``),
-and the conv-free ``UpscalePS`` (reference rnn.py:739-792).
+The fusion blocks of the recurrent family: ``GRUFusionBlock`` (GRU v2,
+reference rnn.py:696-737) and ``GRUFusionBlock_v2`` (v8, v9 and v10,
+rnn.py:739-779), with residual attention units (v2, v8, v9) or residual
+conv units (v2_wo_att, v10, and any of them with ``--disable_attention``),
+and the conv-free ``UpscalePS`` (rnn.py:783-792).
 """
 
 from __future__ import annotations
 
 import torch.nn as nn
 
-from ..ops.image import pixel_shuffle
+from ..ops.image import pixel_shuffle, resize_bilinear
 from .attention import ResidualAttentionUnit
 from .common import Conv3x3, ResidualConvUnit
 
@@ -25,6 +27,43 @@ class UpscalePS(nn.Module):
 
     def forward(self, x):
         return pixel_shuffle(x.tanh(), self.scale)
+
+
+def _units(n: int, features: int, attention: bool, device):
+    """``n`` residual units: attention units with per-channel relative
+    embeddings (``shared_rel=False``, rnn.py:578) or conv units."""
+    if attention:
+        return [ResidualAttentionUnit(features, shared_rel=False, device=device)
+                for _ in range(n)]
+    return [ResidualConvUnit(features, device) for _ in range(n)]
+
+
+class GRUFusionBlock(nn.Module):
+    """rnn.FeatureFusionBlock (reference rnn.py:696-737;
+    ``ssde_tpu/models/fusion.py:193-215``): rcu1(i1) + rcu2(i2) -> rcu3 ->
+    Conv3x3(features -> 1) -> sigmoid; with ``up`` also that disparity
+    resized bilinearly x2 with ``align_corners=True``.
+
+    ``kernel`` routes the 3x3 convs (the conv units' and the head's)
+    through the conv3x3 kernel; attention units take attend3 at every
+    scale, as in :class:`GRUFusionBlock_v2`."""
+
+    def __init__(self, features: int, up: bool = True, attention: bool = True,
+                 device=None):
+        super().__init__()
+        self.up, self.attention = up, attention
+        self.resConfUnit1, self.resConfUnit2, self.resConfUnit3 = _units(
+            3, features, attention, device)
+        self.conv3x3 = Conv3x3(features, 1, device=device)
+
+    def forward(self, input_1, input_2, kernel: bool = False):
+        unit_kernel = self.attention or kernel
+        out = self.resConfUnit1(input_1, unit_kernel) + self.resConfUnit2(input_2, unit_kernel)
+        out = self.conv3x3(self.resConfUnit3(out, unit_kernel), act="sigmoid", kernel=kernel)
+        if self.up:
+            return out, resize_bilinear(out, (2 * out.shape[2], 2 * out.shape[3]),
+                                        align_corners=True)
+        return out
 
 
 class GRUFusionBlock_v2(nn.Module):
@@ -44,13 +83,7 @@ class GRUFusionBlock_v2(nn.Module):
                  device=None):
         super().__init__()
         self.up, self.attention = up, attention
-        if attention:
-            self.resConfUnit1, self.resConfUnit2 = (
-                ResidualAttentionUnit(features, shared_rel=False, device=device)
-                for _ in range(2))
-        else:
-            self.resConfUnit1, self.resConfUnit2 = (
-                ResidualConvUnit(features, device) for _ in range(2))
+        self.resConfUnit1, self.resConfUnit2 = _units(2, features, attention, device)
         self.conv3x3 = Conv3x3(features, 1, device=device)
         self.upscale = UpscalePS(2) if up else None
 

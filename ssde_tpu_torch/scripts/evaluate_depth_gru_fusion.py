@@ -12,8 +12,9 @@ Protocols (selected with --protocol):
              folder's encoder.pth and depth.pth
 
 Run: python -m ssde_tpu_torch.scripts.evaluate_depth_gru_fusion
-       --gru_version v9 --load_weights_folder <folder of .pth files> ...
-(GRU v9 and v10; the other versions raise ``NotImplementedError``.)
+       --gru_version v5 --load_weights_folder <folder of .pth files> ...
+(every ``--gru_version``, v1-v10, v6 and v2_wo_att; the folder holds
+encoder.pth, depth.pth and gru.pth, and head.pth for v4, v6 and v7).
 The bucketed single/warm-up loop and the scene loop are functions
 (:func:`predict_bucketed`, :func:`predict_scenes`) that other programs call.
 """
@@ -131,7 +132,8 @@ def main(argv=None):
     opt = MonodepthOptions().parse(remaining)
     if not opt.load_weights_folder:
         raise ValueError("--load_weights_folder is required: the folder of the trained "
-                         "encoder.pth, depth.pth and gru.pth to evaluate")
+                         "encoder.pth, depth.pth and gru.pth (and head.pth for v4, v6 "
+                         "and v7) to evaluate")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")
     if args.protocol == "mdp":

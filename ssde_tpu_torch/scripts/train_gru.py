@@ -2,16 +2,17 @@
 """Recurrent (GRU) sequence training on the GPU (counterpart of
 ``scripts/train_gru.py``).
 
-Run: python -m ssde_tpu_torch.scripts.train_gru --gru_version v10
-       --data_path <KITTI raw tree> [--len_sequence 3] [Options flags]
+Run: python -m ssde_tpu_torch.scripts.train_gru
+       --data_path <KITTI raw tree> [--gru_version v5] [--len_sequence 3] [Options flags]
 
-GRU v9 (attention fusion; ``--disable_attention`` for conv units) or v10
-(ResNet18 depth and pose encoders, frames [0, -1, 1], bf16 autocast by
-default), on the card unless ``--no_cuda``, over T-frame windows of the
-``--split``'s ``train_sequences`` scenes (or ``--synthetic_data``). It
-writes and reads ``weights_<epoch>/`` as the mono trainer does, with
-``gru.pth`` beside the mono modules. The other versions raise
-``NotImplementedError`` naming the slice of the port that brings them.
+Any ``--gru_version``: v5 (the default), v1, v2 (attention fusion;
+``v2_wo_att`` or ``--disable_attention`` for conv units), v3, v4, v6 (v4's
+wiring), v7, v8 (ConvLSTM), v9 or v10. ResNet18 depth and pose encoders,
+frames [0, -1, 1], bf16 autocast by default, on the card unless
+``--no_cuda``, over T-frame windows of the ``--split``'s
+``train_sequences`` scenes (or ``--synthetic_data``). It writes and reads
+``weights_<epoch>/`` as the mono trainer does, with ``gru.pth`` (and
+``head.pth`` for v4, v6 and v7) beside the mono modules.
 """
 
 from __future__ import annotations

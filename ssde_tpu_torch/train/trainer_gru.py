@@ -1,18 +1,20 @@
 """The recurrent sequence trainer (counterpart of
-``ssde_tpu/train/trainer_gru.py``): GRU v9 or v10 over T-frame sequences with the
-min-reprojection loss at every timestep, on the port's
+``ssde_tpu/train/trainer_gru.py``): any GRU version (v1-v10) over T-frame
+sequences with the min-reprojection loss at every timestep, on the port's
 :class:`~ssde_tpu_torch.train.trainer.TrainerBase` loop.
 
 As in the JAX trainer: frames are [0, -1, 1]; ``--fuse 0`` is overridden
 (the reference forces ``fuse=True``); ``--use_stereo`` raises; the rate is
 constant unless ``--gru_lr_decay`` (the reference never steps its StepLR);
-from epoch ``--h_s_epoch`` on the learned initial hidden states are frozen
-exactly while everything else trains on. The data are T-frame windows of
-the ``--split``'s ``train_sequences``/``val_sequences`` scenes under
-``--data_path`` (:class:`~ssde_tpu_torch.data.sequence.KITTISeqDataset`),
-or ``--synthetic_data``. Checkpoints, loading and the monodepth2 warm start
-are the base trainer's, with ``gru.pth`` beside the mono modules; the depth
-metrics take the (B, T) ground truth B-major.
+from epoch ``--h_s_epoch`` on the learned initial states (h0, and c0 of
+v8's ConvLSTM) are frozen exactly while everything else trains on. The
+data are T-frame windows of the ``--split``'s
+``train_sequences``/``val_sequences`` scenes under ``--data_path``
+(:class:`~ssde_tpu_torch.data.sequence.KITTISeqDataset`), or
+``--synthetic_data``. Checkpoints, loading and the monodepth2 warm start
+are the base trainer's, with ``gru.pth`` (and ``head.pth`` for v4, v6 and
+v7) beside the mono modules; the depth metrics take the (B, T) ground
+truth B-major.
 """
 
 from __future__ import annotations

@@ -14,7 +14,9 @@ ragged ones and the edges of each body's tiling: widths and heights that
 the 4x64 tile of both bodies does not divide, channel counts off their
 input stages (float32 8 or 16, bf16 16 or 32), output blocks (8, 32 or 64)
 and MMA multiples, reflect padding at its 2-pixel minimum, 1- and 2-pixel
-maps, the Cout = 1 heads and the 1-channel convs of their dx (K = 9).
+maps, the Cout = 1 heads and the 1-channel convs of their dx (K = 9), and
+the recurrent family's small-channel convs (Cin and Cout 1 to 6) and
+2-channel attention.
 Bounds as in chip_smoke.py: float32 1e-4 relative to max|ref| and, against
 float64, 4x the plain float32 conv's own error; bfloat16 1e-2 against the
 float32 twin on the same bf16-rounded inputs.
@@ -568,6 +570,77 @@ def test_attention_conv_kernel_path_matches_the_plain_path(dev, shared_rel, use_
     scale = max(p.grad.abs().max() for p in cpu.parameters())  # the key bias's is 0
     for (name, a), b in zip(card.named_parameters(), cpu.parameters()):
         assert ((a.grad.cpu() - b.grad).abs().max() / scale).item() <= 1e-4, name
+
+
+# the recurrent family's small-channel convs (v1's cells and heads at 1
+# channel, v2's at 2): (Cin, Cout) of each conv, and of its dx, the same
+# conv from Cout to Cin
+GRU_FAMILY_CONVS = [(1, 3), (1, 2), (1, 1), (2, 6), (2, 4), (2, 2), (2, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad", ["zero", "reflect"])
+@pytest.mark.parametrize("cin,cout", GRU_FAMILY_CONVS + [(3, 1), (4, 2), (6, 2)])
+@pytest.mark.parametrize("B,h,w", [(1, 24, 80), (2, 37, 45)])
+def test_gru_family_convs_match_twin(dev, B, h, w, cin, cout, pad, dtype):
+    """The forward at v1's and v2's channel counts (and their dx's), every
+    act, bias on and off, against the plain version (the bounds above)."""
+    x, wt, b = _inputs(dev, B, cin, cout, h, w, seed=5)
+    with torch.inference_mode():
+        for act, has_b in itertools.product(ACTS, (True, False)):
+            xi, wi, bi = x.to(dtype), wt.to(dtype), b.to(dtype) if has_b else None
+            got = conv3x3(xi, wi, bi, pad, act)
+            want = conv3x3_reference(xi.float(), wi.float(),
+                                     None if bi is None else bi.float(), pad, act)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == want.shape
+            rel = ((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-12)).item()
+            assert rel <= TOL[dtype], (act, has_b, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout", GRU_FAMILY_CONVS)
+@pytest.mark.parametrize("pad", ["zero", "reflect"])
+def test_gru_family_backward_matches_autograd(dev, cin, cout, pad, dtype):
+    """dx (the forward kernel from Cout to Cin channels), dW and db of the
+    family's small-channel convs against autograd of the plain version."""
+    B, h, w, act = 2, 37, 45, ("sigmoid" if cout == 1 else "relu")
+    x, wt, b = _inputs(dev, B, cin, cout, h, w, seed=6)
+    g = torch.randn(B, cout, h, w, device=dev)
+    xi, wi, bi = (t.to(dtype).requires_grad_() for t in (x, wt, b))
+    before = (conv3x3.launches, conv3x3_dx.launches, conv3x3_dw.launches)
+    conv3x3(xi, wi, bi, pad, act).backward(g.to(dtype))
+    torch.cuda.synchronize()
+    assert (conv3x3.launches, conv3x3_dx.launches, conv3x3_dw.launches) == tuple(
+        n + 1 for n in before)
+    xr, wr, br = (t.detach().float().requires_grad_() for t in (xi, wi, bi))
+    with torch.no_grad():
+        out = conv3x3(xi.detach(), wi.detach(), bi.detach(), pad, act).float()
+        gp = (g.to(dtype).float() * act_grad(act, out)).to(dtype).float()
+    conv3x3_reference(xr, wr, br, pad).backward(gp)
+    for got, want in ((xi.grad, xr.grad), (wi.grad, wr.grad), (bi.grad, br.grad)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert _rel(got.float(), want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W", [(1, 24, 80), (2, 48, 160), (1, 96, 320)])
+def test_attend3_at_two_channels(dev, B, H, W, dtype):
+    """#3/#4 at C = 2, v2's attention units, at its scales 3 to 1 (scale
+    0's 192x640 is chip_smoke.py's), against the plain attend3."""
+    q, kp, vp, rel, g = _attn(dev, B, 2, H, W, seed=7)
+    ops = [t.to(dtype) for t in (q, kp, vp)]
+    out, grads = attend3_fwd(*ops, rel), attend3_bwd(*ops, rel, g.to(dtype))
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, attend3_reference(q, kp, vp, rel), atol=1e-5, rtol=0)
+        want = _attn_grads(*(t.double() for t in (q, kp, vp, rel, g)))
+        assert all(_rel(a.double(), b) <= 1e-4 for a, b in zip(grads, want))
+    else:
+        f = [t.float() for t in ops]
+        assert _rel(out.float(), attend3_reference(*f, rel)) <= 1e-2
+        assert all(_rel(a.float(), b) <= 1e-2
+                   for a, b in zip(grads, _attn_grads(*f, rel, g.to(dtype).float())))
 
 
 def test_a_folder_saved_on_the_card_loads_on_the_cpu(dev, tmp_path):

@@ -367,10 +367,11 @@ def test_gru_trainer_overrides_and_refusals(capsys, kitti_tree, monkeypatch):  #
     assert tr.state.lr == 1e-4 and tr.state.scheduler_step_size == 0  # constant rate
     with pytest.raises(ValueError, match="use_stereo"):
         train_gru.build_trainer(train_gru.MonodepthOptions().parse(_argv("--use_stereo")))
-    for version, slice_ in (("v8", "slice 5"), ("v7", "slice 5"), ("v5", "slice 5")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            train_gru.build_trainer(
-                train_gru.MonodepthOptions().parse(_argv("--gru_version", version)))
+    # every version builds a trainer, with a Head where the version has one
+    for version, head in (("v8", False), ("v7", True), ("v5", False)):
+        tr = train_gru.build_trainer(
+            train_gru.MonodepthOptions().parse(_argv("--gru_version", version)))
+        assert tr.models.gru.version == version and (tr.models.head is not None) == head
     # without --synthetic_data the trainer reads --data_path's scenes
     monkeypatch.setenv("SSDE_SPLITS_DIR", kitti_tree["splits"])
     tr = train_gru.build_trainer(train_gru.MonodepthOptions().parse(
