@@ -121,12 +121,30 @@ Phases, each fatal on failure:
              of every other version at B=2, T=2, 640x192, bf16, and every
              block step card vs CPU against float64 with pinned relus (phase
              12's recipe); a summary line per version
+ 22. fusion serving  the 3-frame attention-fusion models: (a) #3 against
+             its plain version at every attention shape of Fusion
+             (pyramid), Fusion_v3 and the scale-loop block at 640x192
+             (C = 2 and 4 at the four scales, C = 256/128/64/32 at scales
+             3/2/1/0; shared embedding tables; float32 against float32 and
+             float64 at B=1 and 8, bf16 against float32); (b) on phase 19's
+             tree with phase 20's eigen-style list and gt_depths.npz,
+             scripts/evaluate_depth_fusion's main() for pyramid, v3,
+             v3 --disable_attention and scale_loop (ResNet18, float32, TF32
+             off, seed-0 weights written by save_folder): finite
+             disparities, the metrics printed, attend3 launches per batch
+             24/24/0/24, card vs CPU on 4 items (phase 4's bound); (c) the
+             prediction loop's frames/s and device idle share per variant,
+             #3 per call at each fusion shape at B=8 float32 beside its
+             plain version and bound, and the sums over one batch
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, each with its launches on the main path (for
 attend3_fwd those of phases 15 and 16 together; phase 21's main path,
 the family's serving and training, is added to every count and also
-given alone as ``family_launches``), its time, its plain
+given alone as ``family_launches``; phase 22's, the fusion models'
+evaluation, is added to attend3_fwd's and given alone as
+``fusion_launches``, with #3's worst errors at the fusion shapes and its
+times for one batch of each variant under ``fusion_*``), its time, its plain
 version's (conv3x3_fwd: float32 serving at B=1, and under bf16_b8_* and
 f32_b8_* its bf16 and float32 bodies at a B=8 frame-step; conv3x3_dx and
 conv3x3_dw: bf16, and float32 under f32_b8_*; attend3_fwd and attend3_bwd:
@@ -344,6 +362,7 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import ssde_tpu_torch.scripts.evaluate_depth  # noqa: F401
+        import ssde_tpu_torch.scripts.evaluate_depth_fusion  # noqa: F401
         import ssde_tpu_torch.scripts.evaluate_depth_gru_fusion  # noqa: F401
         import ssde_tpu_torch.scripts.evaluate_pose  # noqa: F401
         import ssde_tpu_torch.scripts.export_gt_depth  # noqa: F401
@@ -448,15 +467,23 @@ def main() -> None:
     try:
         tree = kitti_train(dev, card, mono_step_ms, root)
         mono_eval(dev, card, root, *tree)
+        counts, errs = gru_family(dev, card)
+        fusion_count, fusion_errs, fusion_times = fusion_serving(dev, card, root, *tree[:2])
     finally:
         os.environ.pop("SSDE_SPLITS_DIR", None)
         shutil.rmtree(root, ignore_errors=True)
-    counts, errs = gru_family(dev, card)
     for name, n in counts.items():  # phase 21's main path adds to each count
         kernels[name]["launches"] += n
         kernels[name]["family_launches"] = n
     for (name, dt), err in errs.items():
         kernels[name][f"family_{'f32' if dt == f32 else 'bf16'}_max_abs_err"] = err
+    # phase 22's main path (the fusion models' evaluation) adds to #3's count
+    kernels["attend3_fwd"]["launches"] += fusion_count
+    kernels["attend3_fwd"].update(
+        fusion_launches=fusion_count, fusion_f32_max_abs_err=fusion_errs["f32"],
+        fusion_bf16_max_rel_err=fusion_errs["bf16"],
+        **{f"fusion_b8_f32_{label}_{k}": v
+           for label, entry in fusion_times.items() for k, v in entry.items()})
     print(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s [{card}]")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -3080,6 +3107,263 @@ def gru_family(dev, card):
         fail(f"gru family: {missing} launched no time on the main path")
     torch.cuda.empty_cache()
     return total, errs
+
+
+# ====================================== the 3-frame attention-fusion models
+
+# phase 22's runs of evaluate_depth_fusion: (label, --fusion_variant, extra
+# arguments), and attend3's launches per batch of each
+FUSION_RUNS = (("pyramid", "pyramid", []), ("v3", "v3", []),
+               ("v3 --disable_attention", "v3", ["--disable_attention"]),
+               ("scale_loop", "scale_loop", []))
+FUSION_ATTEND3 = {"pyramid": 24, "v3": 24, "v3 --disable_attention": 0, "scale_loop": 24}
+FUSION_CPU_ITEMS = 4  # card vs CPU
+
+
+def fusion_attention(label: str, height: int, width: int):
+    """The attend3 calls of one fusion pass over a batch: (C, h, w) of each.
+    The pyramid's blocks (ssde_tpu_torch.models.fusion.FUSION_SPECS) run 3
+    units of 2 AttentionConvs at their features and scale 3 .. 0; a
+    Fusion_v3 block runs 2 units at C = 2 and one at C = 4 a scale; the
+    scale-loop block 3 units at C = 2 a scale; v3's conv units none."""
+    from ssde_tpu_torch.models.fusion import FUSION_SPECS
+
+    hw = lambda s: (height >> s, width >> s)  # noqa: E731
+    if label == "pyramid":
+        return [(feat, *hw(3 - n)) for n, (feat, _, _) in enumerate(FUSION_SPECS)
+                for _ in range(6)]
+    if label == "v3":
+        return [(c, *hw(s)) for s in range(3, -1, -1) for c in (2, 2, 2, 2, 4, 4)]
+    if label == "scale_loop":
+        return [(2, *hw(s)) for s in range(3, -1, -1) for _ in range(6)]
+    return []
+
+
+def _shared_rel(C: int, gen):
+    """A channel-shared (9, C) relative-embedding table on the CPU, as the
+    fusion blocks' AttentionConv(shared_rel=True) builds it."""
+    from ssde_tpu_torch.models.attention import AttentionConv
+
+    conv = AttentionConv(C, C, 3, use_bias=True, shared_rel=True)
+    conv.init_weights_(gen)
+    return conv.rel_table().detach()
+
+
+def fusion_kernels(dev):
+    """Phase 22 (a): kernel #3 against the plain attend3 at every attention
+    shape of the fusion models at 640x192, with channel-shared embedding
+    tables, by phase 14's recipe: float32 at B=1 and B=8, held against the
+    plain version in float32 and in float64 (TOL_ATTN_FWD absolute), and
+    bf16 against the plain float32 version on the bf16-rounded operands
+    (TOL_ATTN_BF16 of the largest). Returns the worst errors."""
+    import torch
+
+    from ssde_tpu_torch.ops.attention_win import attend3_fwd, attend3_reference
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    cpu_gen = torch.Generator().manual_seed(SEED + 22)
+    shapes = sorted({c for label, _, _ in FUSION_RUNS for c in fusion_attention(label, H, W)},
+                    key=lambda c: (c[0], -c[1]))
+    print(f"fusion kernels: #3 against the plain attend3 at the fusion models' {len(shapes)} "
+          f"attention shapes (C, h, w) {shapes} at B=1 and {EVAL_BATCH}, shared embedding "
+          f"tables; bounds: float32 {TOL_ATTN_FWD} absolute against float32 and float64, bf16 "
+          f"{TOL_ATTN_BF16} of max against float32 on the bf16-rounded operands")
+    worst = {"f32": 0.0, "f32 vs f64": 0.0, "plain f32 vs f64": 0.0, "bf16": 0.0}
+    t0 = time.perf_counter()
+    for (C, h, w), B in itertools.product(shapes, (1, EVAL_BATCH)):
+        q, kp, vp, _, _ = _attn_operands(dev, B, C, h, w, gen)
+        rel = _shared_rel(C, cpu_gen).to(dev)
+        out = attend3_fwd(q, kp, vp, rel)
+        ref = attend3_reference(q, kp, vp, rel)
+        ref64 = attend3_reference(q.double(), kp.double(), vp.double(), rel.double())
+        qb, kb, vb = (t.bfloat16() for t in (q, kp, vp))
+        outb = attend3_fwd(qb, kb, vb, rel)
+        refb = attend3_reference(qb.float(), kb.float(), vb.float(), rel)
+        torch.cuda.synchronize()
+        if out.dtype != torch.float32 or outb.dtype != torch.bfloat16 or out.shape != q.shape:
+            fail(f"fusion kernels: outputs {out.dtype} {outb.dtype} {tuple(out.shape)}")
+        e = {"f32": (out - ref).abs().max().item(),
+             "f32 vs f64": (out.double() - ref64).abs().max().item(),
+             "plain f32 vs f64": (ref.double() - ref64).abs().max().item(),
+             "bf16": _rel(outb.float(), refb)}
+        for k, v in e.items():
+            worst[k] = max(worst[k], v)
+        print(f"  B={B} C={C:3d} {h}x{w}: f32 {e['f32']:.2e} (vs f64 {e['f32 vs f64']:.2e}, "
+              f"plain {e['plain f32 vs f64']:.2e}); bf16 {e['bf16']:.2e} of max")
+        if not (e["f32"] <= TOL_ATTN_FWD and e["f32 vs f64"] <= TOL_ATTN_FWD
+                and e["bf16"] <= TOL_ATTN_BF16):
+            fail(f"fusion kernels: #3 disagrees with the plain version at B={B} C={C} {h}x{w}")
+        del q, kp, vp, rel, out, ref, ref64, qb, kb, vb, outb, refb
+    torch.cuda.empty_cache()
+    print(f"fusion kernels: {2 * len(shapes)} cases ok in {time.perf_counter() - t0:.1f} s; "
+          + ", ".join(f"worst {k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def fusion_kernel_times(dev, card):
+    """Phase 22 (c): #3 per call at each fusion shape at B=8, float32 (the
+    evaluation's batches), beside the plain attend3 and the bound (phase
+    17's timing and cost); and per run the sums over one batch's calls.
+    Returns {label: {ms, plain_ms, bound_ms, bound_by}} of a batch."""
+    import torch
+
+    from ssde_tpu_torch.ops.attention_win import attend3_fwd, attend3_reference
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    cpu_gen = torch.Generator().manual_seed(SEED + 23)
+    B, elem = EVAL_BATCH, 4
+    per_shape = {}
+    print(f"fusion attend3 times on {card}, B={B} float32 (CUDA events, 10 launches after 2 "
+          f"warm-up, order plain, kernel, kernel, plain; bound: the larger of the bytes (q, kp, "
+          f"vp read, out written) over 3.35 TB/s and {ATTN_OPS_FWD} float32 operations per "
+          f"value over 67 TFLOP/s; library: none)")
+    shapes = sorted({c for label, _, _ in FUSION_RUNS for c in fusion_attention(label, H, W)},
+                    key=lambda c: (c[0], -c[1]))
+    for C, h, w in shapes:
+        q, kp, vp, _, _ = _attn_operands(dev, B, C, h, w, gen)
+        rel = _shared_rel(C, cpu_gen).to(dev)
+        t = [cuda_ms(fn, iters=10, warmup=2) for fn in (
+            lambda: attend3_reference(q, kp, vp, rel), lambda: attend3_fwd(q, kp, vp, rel),
+            lambda: attend3_fwd(q, kp, vp, rel), lambda: attend3_reference(q, kp, vp, rel))]
+        n_out, n_pad = B * C * h * w, B * C * (h + 2) * (w + 2)
+        cost = (ATTN_OPS_FWD * n_out, elem * (2 * n_out + 2 * n_pad) + 36 * C)
+        per_shape[(C, h, w)] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2) + cost
+        bms, by = bound(*cost, "float32")
+        print(f"  C={C:3d} {h}x{w}: kernel {per_shape[(C, h, w)][0]:.4f} ms, plain "
+              f"{per_shape[(C, h, w)][1]:.4f} ms, bound {bms:.4f} ms ({by}; "
+              f"{cost[1] / per_shape[(C, h, w)][0] / 1e6:.0f} GB/s) [{card}]")
+        del q, kp, vp, rel
+    torch.cuda.empty_cache()
+    out = {}
+    for label, _, _ in FUSION_RUNS:
+        calls = fusion_attention(label, H, W)
+        if not calls:
+            continue
+        tk, tp, flops, nbytes = (sum(per_shape[c][i] for c in calls) for i in range(4))
+        bms, by = bound(flops, nbytes, "float32")
+        out[label] = {"ms": tk, "plain_ms": tp, "bound_ms": bms, "bound_by": by}
+        print(f"fusion attend3: one {label} batch ({len(calls)} calls) at B={B} float32: "
+              f"kernel {tk:.4f} ms, plain {tp:.4f} ms, bound {bms:.4f} ms ({by}; "
+              f"{nbytes / 1e9:.3f} GB) [{card}]")
+    return out
+
+
+def fusion_serving(dev, card, root, data, splits):
+    """Phase 22: the 3-frame fusion models in serving, on phase 19's tree
+    with phase 20's eigen-style list and gt_depths.npz (``splits``): (a)
+    #3 at the fusion shapes; (b) scripts/evaluate_depth_fusion's main() for
+    pyramid, v3, v3 --disable_attention and scale_loop on seed-0 weights
+    that save_folder wrote (ResNet18, 640x192, float32, TF32 off): finite
+    disparities, the metrics printed, attend3 launches per batch, card vs
+    CPU on FUSION_CPU_ITEMS items (phase 4's bound); (c) the prediction
+    loop's frames/s and device idle share, and #3's times. Returns
+    (attend3 launches of the main path, the worst errors of (a), the times
+    of (c))."""
+    import torch
+
+    from ssde_tpu_torch import checkpoint
+    from ssde_tpu_torch.config import MonodepthOptions, Options
+    from ssde_tpu_torch.data.kitti import KITTIRAWDataset
+    from ssde_tpu_torch.data.pipeline import collate, to_device
+    from ssde_tpu_torch.data.transforms import preprocess_batch
+    from ssde_tpu_torch.models.resnet import randomize_bn_stats_
+    from ssde_tpu_torch.scripts import evaluate_depth_fusion
+    from ssde_tpu_torch.train.steps_fusion import (CONTEXT_IDS, build_fusion_models,
+                                                   fusion_infer)
+
+    phase0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = fusion_kernels(dev)
+    os.environ["SSDE_SPLITS_DIR"] = splits
+    with open(os.path.join(splits, "eigen", "test_files.txt")) as f:
+        lines = f.read().splitlines()
+    n_items = len(lines)
+    n_batches = -(-n_items // evaluate_depth_fusion.BATCH)
+    counters = _gru_counters()
+    total = 0
+    for label, variant, extra in FUSION_RUNS:
+        opts = Options(height=H, width=W, disable_attention="--disable_attention" in extra)
+        gen = torch.Generator().manual_seed(SEED)
+        models = build_fusion_models(opts, variant, "cpu", gen)
+        randomize_bn_stats_(models.encoder, gen)
+        weights = os.path.join(root, "fusion_" + label.replace(" --", "_"))
+        checkpoint.save_folder(weights, models, height=H, width=W)
+        del models
+        argv = ["--fusion_variant", variant, "--data_path", data, "--load_weights_folder",
+                weights, "--height", str(H), "--width", str(W), *extra]
+        seen = []
+        score = evaluate_depth_fusion.evaluate_depth_predictions
+        evaluate_depth_fusion.evaluate_depth_predictions = lambda d, *a, **k: (  # noqa: E731
+            seen.append(d), score(d, *a, **k))[1]
+        try:
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            metrics = evaluate_depth_fusion.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {k: fn.launches for k, fn in counters.items()}
+        finally:
+            evaluate_depth_fusion.evaluate_depth_predictions = score
+        disps = seen[0]
+        want = {k: (FUSION_ATTEND3[label] * n_batches if k == "attend3_fwd" else 0)
+                for k in counters}
+        total += launched["attend3_fwd"]
+        names = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
+        print(f"fusion: evaluate_depth_fusion {label}, {n_items} items in {n_batches} batches "
+              f"of {evaluate_depth_fusion.BATCH}, {H}x{W} float32 (TF32 off): main() {wall:.2f} s "
+              f"({n_items / wall:.1f} frames/s, building, loading, the ground truth and the "
+              f"metrics included); " + " ".join(f"{n} {metrics[n]:.4f}" for n in names)
+              + f"; scaled disparity [{disps.min():.4f}, {disps.max():.4f}]; launches "
+              f"{ {k: v for k, v in launched.items() if v} } (expected attend3_fwd "
+              f"{FUSION_ATTEND3[label]} a batch) [{card}]")
+        if disps.shape != (n_items, H, W) or not np.isfinite(disps).all():
+            fail(f"fusion {label}: disparities {disps.shape} not finite")
+        if launched != want:
+            fail(f"fusion {label}: launches {launched}, expected {want}")
+        if np.abs(disps - disps[0]).max() == 0:
+            fail(f"fusion {label}: every item gave one disparity")
+
+        # the prediction loop alone: frames/s and the device's idle share
+        opt = MonodepthOptions().parse(argv[2:])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate_depth_fusion.predict_disps(opt, variant, dev)
+        torch.cuda.synchronize()
+        loop = time.perf_counter() - t0
+        busy, wall_ms, _ = _device_idle_share(
+            lambda: evaluate_depth_fusion.predict_disps(opt, variant, dev), 1)
+        print(f"fusion: {label} prediction loop (the loader's batches of "
+              f"{evaluate_depth_fusion.BATCH} from the JPEGs, {opt.num_workers} threads on "
+              f"{os.cpu_count()} cores): {n_items / loop:.1f} frames/s over {n_items} (host "
+              f"clock, building and loading included); device busy {busy:.1f} ms of "
+              f"{wall_ms:.1f}: idle share {1 - busy / wall_ms:.1%} [{card}]")
+
+        # the card against the CPU on the same items
+        ds = KITTIRAWDataset(data, lines[:FUSION_CPU_ITEMS], H, W, frame_idxs=list(CONTEXT_IDS),
+                             is_train=False, load_depth=False)
+        batch = collate([ds[i] for i in range(FUSION_CPU_ITEMS)])
+        out = {}
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            models = evaluate_depth_fusion.load_fusion_models(opt, variant, where)
+            inputs = preprocess_batch(to_device(batch, where), H, W, opt.num_scales,
+                                      list(CONTEXT_IDS), is_train=False)
+            t0 = time.perf_counter()
+            out[side] = fusion_infer(models, inputs)["disp/0"].cpu()
+            out[side + " s"] = time.perf_counter() - t0
+        diff = (out["card"] - out["cpu"]).abs().max().item()
+        rel = diff / out["cpu"].abs().max().item()
+        print(f"fusion: {label} card vs CPU on {FUSION_CPU_ITEMS} items, float32, TF32 off: "
+              f"max |d disp| {diff:.3e}, {rel:.3e} of the largest (bound "
+              f"{TOL_EVAL_CARD_VS_CPU}; CPU {out['cpu s']:.1f} s)")
+        if not rel <= TOL_EVAL_CARD_VS_CPU:
+            fail(f"fusion {label}: the card and the CPU disagree on the disparity")
+    times = fusion_kernel_times(dev, card)
+    print(f"fusion: phase 22 took {time.perf_counter() - phase0:.1f} s; attend3 launches of "
+          f"its main path {total} [{card}]")
+    return total, errs, times
 
 
 if __name__ == "__main__":

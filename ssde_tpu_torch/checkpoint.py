@@ -2,11 +2,12 @@
 the reference's per-module ``.pth`` folder.
 
 ``encoder_from_flax`` (the depth encoder and the 6-channel pose encoder),
-``depth_from_flax``, ``pose_decoder_from_flax``, ``gru_from_flax`` and
-``head_from_flax`` invert ``ssde_tpu/checkpoint.py``'s
-``convert_resnet_encoder`` (:132), ``convert_depth_decoder`` (:187),
-``convert_pose_decoder`` (:216), ``convert_gru_blocks`` (:312) and
-``convert_head`` (:350): conv kernels HWIO -> OIHW, ``h0`` and ``c0``
+``depth_from_flax``, ``pose_decoder_from_flax``, ``gru_from_flax``,
+``head_from_flax`` and ``fusion_from_flax`` invert
+``ssde_tpu/checkpoint.py``'s ``convert_resnet_encoder`` (:132),
+``convert_depth_decoder`` (:187), ``convert_pose_decoder`` (:216),
+``convert_gru_blocks`` (:312), ``convert_head`` (:350) and
+``convert_fusion_v2`` (:361): conv kernels HWIO -> OIHW, ``h0`` and ``c0``
 (1, H, W, C) -> (1, C, H, W), BatchNorm
 ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/``running_mean``/
 ``running_var``. Trees are nested dicts of numpy arrays; nothing here
@@ -15,8 +16,9 @@ imports flax.
 The folder layout is the reference's (``ssde_tpu/checkpoint.py:3-8``,
 reference trainer.py:711-763): ``weights_<epoch>/`` holds one ``.pth``
 state dict per module (``encoder``, ``depth``, ``pose_encoder``, ``pose``,
-``gru``, ``head``), ``encoder.pth`` also carries the ``height``, ``width``
-and ``use_stereo`` entries, and ``adam.pth`` the optimizer's state dict.
+``gru``, ``head``, ``fusion``), ``encoder.pth`` also carries the
+``height``, ``width`` and ``use_stereo`` entries, and ``adam.pth`` the
+optimizer's state dict.
 :func:`save_folder` writes it, :func:`load_folder` reads it; one module's
 file is read by :func:`read_module` and loaded strictly, so a file whose
 keys or shapes do not match raises. A missing file is skipped, as the
@@ -131,6 +133,17 @@ def _conv(sd: StateDict, prefix: str, p: Mapping) -> None:
     sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
+def _residual_units(sd: StateDict, prefix: str, p: Mapping) -> None:
+    """The ``resConfUnit{n}`` entries of a fusion block's tree ``p``, conv
+    or attention units (``_convert_rcu``, :299-309), under ``prefix``."""
+    for rcu in sorted(k for k in p if k.startswith("resConfUnit")):
+        for i in (1, 2):
+            if f"atten{i}" in p[rcu]:
+                _attention_conv(sd, f"{prefix}{rcu}.atten{i}", p[rcu][f"atten{i}"])
+            else:
+                _conv(sd, f"{prefix}{rcu}.conv{i}", p[rcu][f"conv{i}"])
+
+
 def gru_from_flax(params: Mapping) -> StateDict:
     """``ssde_tpu.models.ConvGRUBlocks`` params -> ``ConvGRUBlocks``
     state_dict, every version: the units' ``h0`` and ``c0`` and their GRU
@@ -152,12 +165,7 @@ def gru_from_flax(params: Mapping) -> StateDict:
         elif name.startswith("conv3x3_"):
             _conv(sd, f"{name}.conv", p["conv"])
         elif name.startswith("fusion_"):
-            for rcu in sorted(k for k in p if k.startswith("resConfUnit")):
-                for i in (1, 2):
-                    if f"atten{i}" in p[rcu]:
-                        _attention_conv(sd, f"{name}.{rcu}.atten{i}", p[rcu][f"atten{i}"])
-                    else:
-                        _conv(sd, f"{name}.{rcu}.conv{i}", p[rcu][f"conv{i}"])
+            _residual_units(sd, f"{name}.", p)
             _conv(sd, f"{name}.conv3x3.conv", p["conv3x3"]["conv"])
         else:
             raise KeyError(f"unexpected GRU tree entry {name!r}")
@@ -175,6 +183,34 @@ def head_from_flax(params: Mapping) -> StateDict:
     return sd
 
 
+def fusion_from_flax(params: Mapping) -> StateDict:
+    """``ssde_tpu.models`` ``Fusion``/``Fusion_v3`` params (blocks
+    ``fusion_block_{n}``) or a bare ``FeatureFusionBlock``'s (the
+    scale-loop block, units at the root) -> the port's module's state_dict;
+    the inverse of ``convert_fusion_v2`` (:361-397): the residual units,
+    ``conv_init``/``conv_1``, the ``conv3x3`` depth head and the
+    ``upscale``/``upscale_1``/``upscale_2`` convs."""
+    def block(sd, prefix, p):
+        _residual_units(sd, prefix, p)
+        for name in sorted(p):
+            if name in ("conv_init", "conv_1"):
+                _conv(sd, f"{prefix}{name}", p[name])
+            elif name == "conv3x3" or name.startswith("upscale"):
+                _conv(sd, f"{prefix}{name}.conv", p[name]["conv"])
+            elif not name.startswith("resConfUnit"):
+                raise KeyError(f"unexpected fusion tree entry {prefix}{name!r}")
+
+    sd: StateDict = {}
+    blocks = sorted(k for k in params if k.startswith("fusion_block_"))
+    if not blocks:
+        block(sd, "", params)
+    elif len(blocks) != len(params):
+        raise KeyError(f"unexpected fusion tree entries {sorted(set(params) - set(blocks))}")
+    for name in blocks:
+        block(sd, f"{name}.", params[name])
+    return sd
+
+
 def load_depth(decoder: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> None:
     """Strict load, except that the dispconv heads may be absent."""
     res = decoder.load_state_dict(sd, strict=False)
@@ -188,7 +224,7 @@ def load_depth(decoder: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> None
 
 # the module files of a folder, in the reference's order, and the entries
 # that encoder.pth carries beside its weights
-MODULE_NAMES = ("encoder", "depth", "pose_encoder", "pose", "gru", "head")
+MODULE_NAMES = ("encoder", "depth", "pose_encoder", "pose", "gru", "head", "fusion")
 ENCODER_META = ("height", "width", "use_stereo")
 
 
@@ -220,8 +256,8 @@ def read_module(path: str) -> Tuple[StateDict, Dict[str, int]]:
 def load_folder(folder: str, models, names: Sequence[str] = MODULE_NAMES
                 ) -> Tuple[Dict[str, int], List[str]]:
     """Load ``<folder>/<name>.pth`` into ``models.<name>`` for each of
-    ``names`` that the bundle has (``MonoModels`` or ``GRUModels``); a
-    missing file is skipped. Returns (the encoder's embedded entries, the
+    ``names`` that the bundle has (``MonoModels``, ``GRUModels`` or
+    ``FusionModels``); a missing file is skipped. Returns (the encoder's embedded entries, the
     names loaded). Strict: a key or shape that does not match raises (the
     depth decoder may lack its dispconv heads, :func:`load_depth`)."""
     meta: Dict[str, int] = {}

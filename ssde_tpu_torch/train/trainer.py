@@ -15,8 +15,11 @@ per-module ``.pth`` layout (:mod:`ssde_tpu_torch.checkpoint`);
 ``--load_weights_folder`` with ``--models_to_load`` reads one back, and
 ``--mono_pretrained`` warm-starts from ``models/mono_640x192`` where that
 folder exists. ``--matmul_precision float32`` (or ``highest``) turns TF32
-off for cuDNN and cuBLAS, process-wide. There is no TensorBoard writer,
-mesh or ``device_prefetch`` yet.
+off for cuDNN and cuBLAS, process-wide. ``--profile_steps N`` traces steps
+5 .. 5+N with ``torch.profiler`` into ``<log_dir>/<model_name>/profile/``
+(:class:`ProfileWindow`). ``--num_devices`` 0 (all) and 1 train on one
+card; more raise, as multi-GPU training is not ported. There is no
+TensorBoard writer or ``device_prefetch`` yet.
 
 The port's warp is exact, so it reports no ``warp/band_violation`` and the
 JAX trainer's ``_check_band_violation`` guard has nothing to check.
@@ -78,6 +81,58 @@ def apply_matmul_precision(opt: Options) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def check_num_devices(opt: Options) -> None:
+    """``--num_devices`` (``ssde_tpu/train/trainer.py:76``, the JAX
+    trainer's data-parallel mesh): 0 (every device) and 1 are one card
+    here; a larger value raises rather than train on one card."""
+    if opt.num_devices < 0:
+        raise ValueError(f"--num_devices {opt.num_devices}: 0 (all) or a device count")
+    if opt.num_devices > 1:
+        raise NotImplementedError(
+            f"--num_devices {opt.num_devices}: multi-GPU data parallelism is not ported yet "
+            "(ROADMAP.md Queue 1, item 12, multi-GPU); the port trains on one card "
+            "(--num_devices 0 or 1)")
+
+
+class ProfileWindow:
+    """``--profile_steps N``: a ``torch.profiler`` trace (CPU, and CUDA on
+    the card) of the steps 5 .. 5+N, the JAX trainer's window
+    (``ssde_tpu/train/trainer.py:224-227``), written as a Chrome trace
+    ``steps_5-<5+N>.pt.trace.json`` under ``folder``. :meth:`at` runs
+    before each step with its global index; :meth:`close` ends a window
+    that training left open (the JAX trainer leaves its trace open)."""
+
+    FIRST = 5
+
+    def __init__(self, steps: int, folder: str, device: torch.device):
+        self.steps, self.folder, self.device = steps, folder, device
+        self.profiler = None
+
+    def at(self, step: int) -> None:
+        if not self.steps:
+            return
+        if step == self.FIRST:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.profiler = torch.profiler.profile(activities=activities)
+            self.profiler.start()
+        elif step == self.FIRST + self.steps:
+            self.close()
+
+    def close(self) -> None:
+        if self.profiler is None:
+            return
+        self.profiler.stop()
+        os.makedirs(self.folder, exist_ok=True)
+        path = os.path.join(self.folder,
+                            f"steps_{self.FIRST}-{self.FIRST + self.steps}.pt.trace.json")
+        self.profiler.export_chrome_trace(path)
+        self.profiler = None
+        print(f"profile of steps {self.FIRST}-{self.FIRST + self.steps} written to {path}",
+              flush=True)
+
+
 def depth_metrics(depth_pred: np.ndarray, gt: np.ndarray) -> Dict[str, float]:
     """The 7 depth metrics of (N, h, w) predicted depth against (N, H, W)
     velodyne ground truth (``ssde_tpu/train/trainer.py:319-347``): each
@@ -125,8 +180,11 @@ class TrainerBase:
         assert self.opt.width % 32 == 0, "'width' must be a multiple of 32"
         assert self.opt.frame_ids[0] == 0, "frame_ids must start with 0"
         self.check_supported(self.opt)
+        check_num_devices(self.opt)
         apply_matmul_precision(self.opt)
         self.device = run_device(self.opt, device)
+        self.profile = ProfileWindow(self.opt.profile_steps,
+                                     os.path.join(self.log_path, "profile"), self.device)
         self.step = 0
         self.epoch = 0
         self.seed = seed
@@ -216,12 +274,16 @@ class TrainerBase:
     # ------------------------------------------------------------ train
     def train(self):
         """``num_epochs`` epochs, a checkpoint after every
-        ``--save_frequency``-th."""
+        ``--save_frequency``-th; a ``--profile_steps`` window still open at
+        the end is closed and written."""
         self.start_time = time.time()
-        for self.epoch in range(self.opt.num_epochs):
-            self.run_epoch()
-            if (self.epoch + 1) % self.opt.save_frequency == 0:
-                self.save_model()
+        try:
+            for self.epoch in range(self.opt.num_epochs):
+                self.run_epoch()
+                if (self.epoch + 1) % self.opt.save_frequency == 0:
+                    self.save_model()
+        finally:
+            self.profile.close()
 
     def run_epoch(self) -> List[Dict[str, torch.Tensor]]:
         """One pass over the training set; the losses of every step, on the
@@ -232,6 +294,7 @@ class TrainerBase:
         history = []
         for batch_idx, host in enumerate(self.train_loader):
             before = time.time()
+            self.profile.at(self.step)
             losses = self.step_fn(self.models, self.state, device_batch(host, self.device), gen)
             history.append(losses)
             early_phase = batch_idx % self.opt.log_frequency == 0 and self.step < 2000

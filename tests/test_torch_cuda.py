@@ -16,7 +16,8 @@ input stages (float32 8 or 16, bf16 16 or 32), output blocks (8, 32 or 64)
 and MMA multiples, reflect padding at its 2-pixel minimum, 1- and 2-pixel
 maps, the Cout = 1 heads and the 1-channel convs of their dx (K = 9), and
 the recurrent family's small-channel convs (Cin and Cout 1 to 6) and
-2-channel attention.
+2-channel attention, and the 3-frame fusion blocks' attention (C = 2, 4
+and 256, channel-shared embeddings) and modules.
 Bounds as in chip_smoke.py: float32 1e-4 relative to max|ref| and, against
 float64, 4x the plain float32 conv's own error; bfloat16 1e-2 against the
 float32 twin on the same bf16-rounded inputs.
@@ -641,6 +642,76 @@ def test_attend3_at_two_channels(dev, B, H, W, dtype):
         assert _rel(out.float(), attend3_reference(*f, rel)) <= 1e-2
         assert all(_rel(a.float(), b) <= 1e-2
                    for a, b in zip(grads, _attn_grads(*f, rel, g.to(dtype).float())))
+
+
+def _shared_rel(dev, C, seed):
+    """A channel-shared (9, C) relative-embedding table, as the fusion
+    blocks' ``AttentionConv(shared_rel=True)`` builds it: rel_h by window
+    row in the first C/2 channels, rel_w by window column in the rest."""
+    torch.manual_seed(seed)
+    return AttentionConv(C, C, 3, use_bias=True, shared_rel=True).rel_table().detach().to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,H,W", [(2, 4, 24, 80), (1, 4, 96, 320), (2, 256, 24, 80),
+                                     (1, 2, 48, 160)])
+def test_attend3_at_the_fusion_shapes(dev, B, C, H, W, dtype):
+    """#3/#4 at the 3-frame fusion blocks' shapes with shared embeddings:
+    C = 4 (Fusion_v3's third unit), C = 256 (the pyramid's first block) at
+    24x80, C = 2 (its other units); against the plain attend3. chip_smoke.py
+    phase 22 holds every fusion shape at 640x192."""
+    q, kp, vp, _, g = _attn(dev, B, C, H, W, seed=8)
+    rel = _shared_rel(dev, C, seed=8)
+    ops = [t.to(dtype) for t in (q, kp, vp)]
+    out, grads = attend3_fwd(*ops, rel), attend3_bwd(*ops, rel, g.to(dtype))
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, attend3_reference(q, kp, vp, rel), atol=1e-5, rtol=0)
+        want = _attn_grads(*(t.double() for t in (q, kp, vp, rel, g)))
+        assert all(_rel(a.double(), b) <= 1e-4 for a, b in zip(grads, want))
+    else:
+        f = [t.float() for t in ops]
+        assert _rel(out.float(), attend3_reference(*f, rel)) <= 1e-2
+        assert all(_rel(a.float(), b) <= 1e-2
+                   for a, b in zip(grads, _attn_grads(*f, rel, g.to(dtype).float())))
+
+
+@pytest.mark.parametrize("variant", ["pyramid", "v3", "scale_loop"])
+def test_fusion_on_the_card_matches_the_cpu(dev, variant):
+    """One seeded fusion module of each variant on per-frame decoder outputs
+    at 32x64, B=2, float32: the card (attend3, 24 launches) against the
+    CPU (the plain attend3), 1e-4 of the largest value."""
+    from ssde_tpu_torch.models import FeatureFusionBlock, Fusion, Fusion_v3
+    from ssde_tpu_torch.models.common import init_weights_
+
+    make = {"pyramid": Fusion, "v3": Fusion_v3, "scale_loop": FeatureFusionBlock}[variant]
+    cpu = make().eval()
+    init_weights_(cpu, torch.Generator().manual_seed(9))
+    card = make().to(dev).eval()
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(9)
+    ch = (16, 32, 64, 128) if variant == "pyramid" else (1, 1, 1, 1)
+    frames = [{f"disp/{s}": torch.rand(2, ch[s], 32 >> s, 64 >> s, generator=g)
+               for s in range(4)} for _ in range(3)]
+
+    def run(module, device):
+        fs = [{k: v.to(device) for k, v in f.items()} for f in frames]
+        if variant != "scale_loop":
+            return module(*fs)
+        out, upt = {}, torch.zeros_like(fs[0]["disp/3"])
+        for s in range(3, -1, -1):
+            out[f"disp/{s}"], upt = module(fs[0][f"disp/{s}"], upt, fs[1][f"disp/{s}"],
+                                           fs[2][f"disp/{s}"])
+        return out
+
+    with torch.no_grad():
+        want = run(cpu, "cpu")
+        before = attend3_fwd.launches
+        got = run(card, dev)
+        torch.cuda.synchronize()
+    assert attend3_fwd.launches - before == 24
+    for k in want:
+        assert _rel(got[k].cpu(), want[k]) <= 1e-4, k
 
 
 def test_a_folder_saved_on_the_card_loads_on_the_cpu(dev, tmp_path):

@@ -29,6 +29,7 @@ gradients and must leave the same parameters to two float32 ulps.
 
 import copy
 import functools
+import json
 import os
 
 import flax.linen
@@ -264,3 +265,54 @@ def test_other_models_are_not_ported(model):
 def test_unported_options_raise(flag, value, name):
     with pytest.raises(NotImplementedError, match=name):
         build_mono_models(_opts(**{flag: value}))
+
+
+def _synthetic_argv(tmp_path, *extra):
+    return ["--model", "monodepth2", "--synthetic_data", "--height", "32", "--width", "64",
+            "--batch_size", "2", "--num_epochs", "1", "--save_frequency", "2",
+            "--log_frequency", "8", "--num_workers", "1", "--log_dir", str(tmp_path), *extra]
+
+
+def test_profile_steps_writes_a_trace_of_its_window(tmp_path, capsys):
+    """--profile_steps 2 traces steps 5 and 6 (the JAX trainer's window,
+    5 .. 5+N) with torch.profiler into <log_dir>/<model_name>/profile/."""
+    trainer = train_dpt.build_trainer(
+        train_dpt.MonodepthOptions().parse(_synthetic_argv(tmp_path, "--profile_steps", "2")),
+        "cpu")
+    trainer.train()
+    assert trainer.step == 8
+    folder = tmp_path / "mdp" / "profile"
+    assert os.listdir(folder) == ["steps_5-7.pt.trace.json"]
+    with open(folder / "steps_5-7.pt.trace.json") as f:
+        trace = json.load(f)
+    # the window holds the two steps' operations, the backward's among them
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("conv" in n for n in names) and any("Backward" in n for n in names)
+    assert "profile of steps 5-7 written" in capsys.readouterr().out
+
+
+def test_profile_window_left_open_is_closed_when_training_ends(tmp_path):
+    """A window past the last step (5 .. 5+100 in 8 steps) is written when
+    train() returns; the JAX trainer leaves its trace open."""
+    trainer = train_dpt.build_trainer(
+        train_dpt.MonodepthOptions().parse(_synthetic_argv(tmp_path, "--profile_steps", "100")),
+        "cpu")
+    trainer.train()
+    assert os.listdir(tmp_path / "mdp" / "profile") == ["steps_5-105.pt.trace.json"]
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_more_than_one_device_raises(tmp_path, n):
+    with pytest.raises(NotImplementedError, match="num_devices"):
+        train_dpt.build_trainer(train_dpt.MonodepthOptions().parse(
+            _synthetic_argv(tmp_path, "--num_devices", str(n))), "cpu")
+
+
+def test_one_device_trains(tmp_path):
+    """--num_devices 1 is one card (here the CPU): the epoch runs and no
+    profile is written without --profile_steps."""
+    trainer = train_dpt.build_trainer(train_dpt.MonodepthOptions().parse(
+        _synthetic_argv(tmp_path, "--num_devices", "1")), "cpu")
+    trainer.train()
+    assert trainer.step == 8 and trainer.state.step == 8
+    assert not (tmp_path / "mdp" / "profile").exists()
