@@ -136,6 +136,26 @@ Phases, each fatal on failure:
              prediction loop's frames/s and device idle share per variant,
              #3 per call at each fusion shape at B=8 float32 beside its
              plain version and bound, and the sums over one batch
+ 23. fusion train  (a) #4 against autograd of its plain version at the 12
+             fusion attention shapes at B=1 and 12 (shared embedding
+             tables; float32 against float64, bf16 against float32, dq,
+             dkp, dvp and drel each), and its time per call at B=12 bf16
+             beside the plain backward and the bound; (b) each fusion
+             trainer through its entry point's main() at the Options
+             defaults (ResNet18, 640x192, B=12, bf16, synthetic data, one
+             epoch): train_fusion (pyramid), train_fusion_v3 with and
+             without --disable_attention, train_dpt --model rn_fusion and
+             FusionScaleLoopTrainer: finite losses, every module moved, the
+             launches (attend3 24/24 a step, 0/0 without attention), then
+             the step's ms, samples/s, peak memory and idle share; (c) one
+             step of each variant at 64x128, B=2, card vs CPU and each
+             against float64 (networks float64, the fusion module and the
+             loss float32, relu masks and automask argmin pinned); (d)
+             train_fusion_v3's main() on phase 19's tree with a
+             train_files_seq.txt beside its lists: the seq list read, the
+             7 depth metrics, weights_0 with fusion.pth, a trainer
+             reloaded with no --models_to_load bit-identical, the loader's
+             items/s (4 JPEGs an item)
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, each with its launches on the main path (for
@@ -144,7 +164,12 @@ the family's serving and training, is added to every count and also
 given alone as ``family_launches``; phase 22's, the fusion models'
 evaluation, is added to attend3_fwd's and given alone as
 ``fusion_launches``, with #3's worst errors at the fusion shapes and its
-times for one batch of each variant under ``fusion_*``), its time, its plain
+times for one batch of each variant under ``fusion_*``; phase 23's, the
+fusion trainers' runs, is added to attend3_fwd's, attend3_bwd's, the
+warp's and the photometric kernels' counts and given alone as
+``fusion_train_launches``, with #4's worst errors at the fusion shapes
+and its times for one step of each variant at B=12 bf16 under
+``fusion_*`` of attend3_bwd), its time, its plain
 version's (conv3x3_fwd: float32 serving at B=1, and under bf16_b8_* and
 f32_b8_* its bf16 and float32 bodies at a B=8 frame-step; conv3x3_dx and
 conv3x3_dw: bf16, and float32 under f32_b8_*; attend3_fwd and attend3_bwd:
@@ -368,6 +393,8 @@ def main() -> None:
         import ssde_tpu_torch.scripts.export_gt_depth  # noqa: F401
         import ssde_tpu_torch.scripts.test_simple  # noqa: F401
         import ssde_tpu_torch.scripts.train_dpt  # noqa: F401
+        import ssde_tpu_torch.scripts.train_fusion  # noqa: F401
+        import ssde_tpu_torch.scripts.train_fusion_v3  # noqa: F401
         import ssde_tpu_torch.scripts.train_gru  # noqa: F401
         from ssde_tpu_torch.ops.build import load_library
     except ImportError as e:
@@ -469,6 +496,7 @@ def main() -> None:
         mono_eval(dev, card, root, *tree)
         counts, errs = gru_family(dev, card)
         fusion_count, fusion_errs, fusion_times = fusion_serving(dev, card, root, *tree[:2])
+        train_count, bwd_errs, bwd_times = fusion_training(dev, card, root, *tree[:2])
     finally:
         os.environ.pop("SSDE_SPLITS_DIR", None)
         shutil.rmtree(root, ignore_errors=True)
@@ -484,6 +512,16 @@ def main() -> None:
         fusion_bf16_max_rel_err=fusion_errs["bf16"],
         **{f"fusion_b8_f32_{label}_{k}": v
            for label, entry in fusion_times.items() for k, v in entry.items()})
+    # phase 23's main path (the fusion trainers' runs) adds to the kernels of its step
+    for name in ("attend3_fwd", "attend3_bwd", "warp_family_fwd", "photometric_fwd",
+                 "photometric_bwd"):
+        kernels[name]["launches"] += train_count[name]
+        kernels[name]["fusion_train_launches"] = train_count[name]
+    kernels["attend3_bwd"].update(
+        fusion_f32_max_rel_err=bwd_errs["f32"],
+        fusion_bf16_max_rel_err=max(v for k, v in bwd_errs.items() if k.startswith("bf16")),
+        **{f"fusion_b12_bf16_{label}_{k}": v
+           for label, entry in bwd_times.items() for k, v in entry.items()})
     print(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s [{card}]")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -2336,9 +2374,13 @@ def _adam_steps(trainer):
     return sorted({int(s["step"]) for s in trainer.state.optimizer.state.values()})
 
 
-def _kitti_trainer_run(name, cls, main, argv, want_files, want_launches, card):
+def _kitti_trainer_run(name, cls, main, argv, want_files, want_launches, card,
+                       gradless_ok=False):
     """One trainer's epoch on the tree through its entry point's main():
-    the checks of phase 19 up to the reload. Returns (trainer, weights_0)."""
+    the checks of phase 19 up to the reload. Every trained parameter must
+    change; with ``gradless_ok`` (the fusion trainers) those that no
+    gradient reached in the last step may stay. Returns (trainer,
+    weights_0)."""
     import torch
 
     counters = _gru_counters()
@@ -2365,6 +2407,10 @@ def _kitti_trainer_run(name, cls, main, argv, want_files, want_launches, card):
                  if torch.equal(a, p)]
     print(f"kitti {name}: {len(obs.start) - len(unchanged)} of {len(obs.start)} trained "
           "parameters changed" + (f"; unchanged: {unchanged}" if unchanged else ""))
+    if gradless_ok:
+        params = list(trainer.models.parameters())
+        unchanged = [i for i in unchanged
+                     if params[i].grad is not None and params[i].grad.abs().max() > 1e-6]
     if unchanged:
         fail(f"kitti {name}: some parameters did not change")
     if not obs.vals:
@@ -2386,11 +2432,12 @@ def _kitti_trainer_run(name, cls, main, argv, want_files, want_launches, card):
     return trainer, folder
 
 
-def _kitti_reload(name, build_trainer, parse, argv, trainer, folder, card):
+def _kitti_reload(name, build_trainer, parse, argv, trainer, folder, card, floor=0.0):
     """A trainer built on ``folder`` against the saved one: bit-identical
     modules and Adam step count; then one further step from each on one
     batch, held at phase 8's tolerance (loss 1e-4 relative; each tensor's
-    update 1e-3 of its largest)."""
+    update 1e-3 of its largest, or of ``floor`` times its module's largest
+    where that is more: FUSION_GRAD_FLOOR for the fusion trainers)."""
     import torch
 
     from ssde_tpu_torch.train.trainer import device_batch
@@ -2436,15 +2483,21 @@ def _kitti_reload(name, build_trainer, parse, argv, trainer, folder, card):
         trained = {id(p) for p in models.parameters()}
         named = [(f"{i}.{k}", p) for i, m in enumerate(models.modules())
                  for k, p in m.named_parameters() if id(p) in trained]
-        runs.append((float(out["loss"]), {k: p.grad.detach().clone() for k, p in named},
+        runs.append((float(out["loss"]), {k: p.grad.detach().clone() for k, p in named
+                                          if p.grad is not None},
                      {k: p.detach().clone() for k, p in named}))
         del models, state, out
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
     def worst(x, y):
-        """The largest difference of a tensor, over its largest value, and
-        the tensor's name."""
-        return max((((x[k] - y[k]).abs().max() / x[k].abs().max()).item(), k)
+        """The largest difference of a tensor, over its largest value (or
+        ``floor`` times its module's largest), and the tensor's name."""
+        top = {}
+        for k, v in x.items():
+            m = k.split(".")[0]
+            top[m] = max(top.get(m, 0.0), v.abs().max().item())
+        return max((((x[k] - y[k]).abs().max()
+                     / max(x[k].abs().max().item(), floor * top[k.split(".")[0]])).item(), k)
                    for k in x if x[k].abs().max() > 0)
 
     for label, j in (("saved vs saved", 1), ("saved vs reloaded", 2)):
@@ -3363,6 +3416,451 @@ def fusion_serving(dev, card, root, data, splits):
     times = fusion_kernel_times(dev, card)
     print(f"fusion: phase 22 took {time.perf_counter() - phase0:.1f} s; attend3 launches of "
           f"its main path {total} [{card}]")
+    return total, errs, times
+
+
+# =============================================================== fusion training
+
+# phase 23's runs of the fusion trainers through their entry points: (label,
+# script module, extra arguments); scale_loop's FusionScaleLoopTrainer has
+# no script and is built from its class
+FUSION_TRAIN_RUNS = (("pyramid", "train_fusion", []), ("v3", "train_fusion_v3", []),
+                     ("v3 --disable_attention", "train_fusion_v3", ["--disable_attention"]),
+                     ("rn_fusion", "train_dpt", ["--model", "rn_fusion"]),
+                     ("scale_loop", None, []))
+FUSION_CPU_HW = (64, 128)  # phase 23 (c): card vs CPU, B=2
+# phase 23 (c) and (d) hold a gradient tensor whose max is below this share
+# of its module's largest against that share instead: the 2-channel
+# attention units of a seeded fusion model have near-dead channels whose
+# gradients (a rel_w of 4e-9, a query bias of 1e-20 in float64) are sums of
+# cancelling module-sized terms, which float32 rounds to 2e-3 of their own
+# size (v3 at 64x128 on the CPU, where the card's kernels do not run)
+FUSION_GRAD_FLOOR = 1e-3
+FUSION_KITTI_STEPS = 3  # phase 23 (d): the seq list's batches
+
+
+def fusion_bwd_kernels(dev, card):
+    """Phase 23 (a): kernel #4 against autograd of the plain attend3 at every
+    attention shape of the fusion models at 640x192, with channel-shared
+    embedding tables, at B=1 and the trainers' B=12: float32 against a
+    float64 run (TOL_ATTN_GRAD of each gradient's max; the plain float32
+    version's own error shown), bf16 against float32 on the bf16-rounded
+    operands (TOL_ATTN_BF16, dq, dkp, dvp and drel each); then #4 per call at
+    B=12 bf16 (the trainers' configuration) beside the plain backward and
+    the bound, and per variant the sums over one step's calls. Returns (the
+    worst errors, {label: {ms, plain_ms, bound_ms, bound_by}} of a step)."""
+    import torch
+
+    from ssde_tpu_torch.ops.attention_win import attend3_bwd, attend3_reference
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    cpu_gen = torch.Generator().manual_seed(SEED + 24)
+    shapes = sorted({c for label, _, _ in FUSION_RUNS for c in fusion_attention(label, H, W)},
+                    key=lambda c: (c[0], -c[1]))
+    names = ("dq", "dkp", "dvp", "drel")
+    print(f"fusion bwd kernels: #4 against autograd of the plain attend3 at the fusion models' "
+          f"{len(shapes)} attention shapes at B=1 and {MONO_B}, shared embedding tables; "
+          f"bounds: float32 {TOL_ATTN_GRAD} of each gradient's max against float64, bf16 "
+          f"{TOL_ATTN_BF16} of max against float32 on the bf16-rounded operands")
+    worst = {"f32": 0.0, "plain f32": 0.0, **{f"bf16 {n}": 0.0 for n in names}}
+    t0 = time.perf_counter()
+    for (C, h, w), B in itertools.product(shapes, (1, MONO_B)):
+        q, kp, vp, _, g = _attn_operands(dev, B, C, h, w, gen)
+        rel = _shared_rel(C, cpu_gen).to(dev)
+        got = attend3_bwd(q, kp, vp, rel, g)
+        want = _attn_plain_grads(*(t.double() for t in (q, kp, vp, rel, g)))
+        plain = _attn_plain_grads(q, kp, vp, rel, g)
+        qb, kb, vb, gb = (t.bfloat16() for t in (q, kp, vp, g))
+        gotb = attend3_bwd(qb, kb, vb, rel, gb)
+        wantb = _attn_plain_grads(qb.float(), kb.float(), vb.float(), rel, gb.float())
+        torch.cuda.synchronize()
+        if [a.dtype for a in got] != [torch.float32] * 4 or [a.dtype for a in gotb] != [
+                torch.bfloat16] * 3 + [torch.float32]:
+            fail(f"fusion bwd kernels: dtypes {[a.dtype for a in got + gotb]}")
+        e = {"f32": max(_rel(a.double(), b) for a, b in zip(got, want)),
+             "plain f32": max(_rel(a.double(), b) for a, b in zip(plain, want)),
+             **{f"bf16 {n}": _rel(a.float(), b) for n, a, b in zip(names, gotb, wantb)}}
+        for k, v in e.items():
+            worst[k] = max(worst[k], v)
+        print(f"  B={B:2d} C={C:3d} {h}x{w}: f32 {e['f32']:.2e} of max against float64 (plain "
+              f"{e['plain f32']:.2e}); bf16 " + ", ".join(f"{n} {e['bf16 ' + n]:.2e}"
+                                                          for n in names))
+        if not (e["f32"] <= TOL_ATTN_GRAD and all(e[f"bf16 {n}"] <= TOL_ATTN_BF16
+                                                  for n in names)):
+            fail(f"fusion bwd kernels: #4 disagrees with the plain version at B={B} C={C} "
+                 f"{h}x{w}")
+        del q, kp, vp, rel, g, got, want, plain, qb, kb, vb, gb, gotb, wantb
+    torch.cuda.empty_cache()
+    print(f"fusion bwd kernels: {2 * len(shapes)} cases ok in {time.perf_counter() - t0:.1f} s; "
+          + ", ".join(f"worst {k} {v:.3e}" for k, v in worst.items()))
+
+    B, elem = MONO_B, 2
+    print(f"fusion attend3_bwd times on {card}, B={B} bf16 (CUDA events, 10 launches after 2 "
+          f"warm-up, order plain, kernel, kernel, plain; plain: autograd of the plain forward, "
+          f"which it runs too; bound: the larger of the bytes (q, kp, vp, g read, dq, dkp, dvp "
+          f"written, bf16; drel) over 3.35 TB/s and {ATTN_OPS_BWD} float32 operations per value "
+          f"over 67 TFLOP/s; library: none)")
+    per_shape = {}
+    for C, h, w in shapes:
+        q, kp, vp, rel, g = (t.bfloat16() if t.dim() == 4 else t
+                             for t in _attn_operands(dev, B, C, h, w, gen))
+        rel = _shared_rel(C, cpu_gen).to(dev)
+        leaves = [t.detach().requires_grad_() for t in (q, kp, vp, rel)]
+        kernel = lambda: attend3_bwd(q, kp, vp, rel, g)  # noqa: E731
+        ref = lambda: torch.autograd.grad(attend3_reference(*leaves), leaves, g)  # noqa: E731
+        t = [cuda_ms(fn, iters=10, warmup=2) for fn in (ref, kernel, kernel, ref)]
+        n_out, n_pad = B * C * h * w, B * C * (h + 2) * (w + 2)
+        cost = (ATTN_OPS_BWD * n_out, elem * (3 * n_out + 4 * n_pad) + 72 * C)
+        per_shape[(C, h, w)] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2) + cost
+        bms, by = bound(*cost, "float32")
+        print(f"  C={C:3d} {h}x{w}: kernel {per_shape[(C, h, w)][0]:.4f} ms, plain "
+              f"{per_shape[(C, h, w)][1]:.4f} ms, bound {bms:.4f} ms ({by}; "
+              f"{cost[1] / per_shape[(C, h, w)][0] / 1e6:.0f} GB/s) [{card}]")
+        del q, kp, vp, rel, g, leaves
+    torch.cuda.empty_cache()
+    times = {}
+    for label, _, _ in FUSION_RUNS:
+        calls = fusion_attention(label, H, W)
+        if not calls:
+            continue
+        tk, tp, flops, nbytes = (sum(per_shape[c][i] for c in calls) for i in range(4))
+        bms, by = bound(flops, nbytes, "float32")
+        times[label] = {"ms": tk, "plain_ms": tp, "bound_ms": bms, "bound_by": by}
+        print(f"fusion attend3_bwd: one {label} step ({len(calls)} calls) at B={B} bf16: kernel "
+              f"{tk:.4f} ms, plain {tp:.4f} ms, bound {bms:.4f} ms ({by}; {nbytes / 1e9:.3f} GB) "
+              f"[{card}]")
+    return worst, times
+
+
+def _fusion_main(script):
+    """The entry point's main() of a phase 23 run: the script's, or for
+    scale_loop the trainer class built and trained as a script would."""
+    import importlib
+
+    from ssde_tpu_torch.config import MonodepthOptions
+    from ssde_tpu_torch.train.trainer import FusionScaleLoopTrainer
+
+    if script is not None:
+        return importlib.import_module(f"ssde_tpu_torch.scripts.{script}").main
+
+    def main(argv):
+        trainer = FusionScaleLoopTrainer(MonodepthOptions().parse(argv))
+        trainer.train()
+        return trainer
+    return main
+
+
+def _moved(obs, trainer):
+    """(modules of the trainer with no parameter moved, the unchanged
+    parameters that had a gradient in the last step): every module moves,
+    and a parameter stays only where no gradient reached it (Fusion_v3's
+    last upscale conv; a 2-channel attention unit's dead channel)."""
+    import torch
+
+    start = {id(p): a for a, p in zip(obs.start, trainer.models.parameters())}
+    still, stuck = [], []
+    for m in trainer.models.modules():
+        ps = [p for p in m.parameters() if id(p) in start]
+        same = [torch.equal(start[id(p)], p) for p in ps]
+        if all(same):
+            still.append(type(m).__name__)
+        stuck += [p for p, s in zip(ps, same)
+                  if s and p.grad is not None and p.grad.abs().max() > 1e-6]
+    return still, stuck
+
+
+def fusion_train_runs(dev, card):
+    """Phase 23 (b): each fusion trainer through its entry point's main() at
+    640x192, B=12, bf16 (the Options defaults), synthetic data, one epoch:
+    finite losses, every module moved, the launches per step; then the step
+    alone (CUDA events, chained after warm-up, as phase 9): ms, samples/s,
+    peak memory, the device idle share. Returns the launches of the runs."""
+    import torch
+
+    from ssde_tpu_torch.data.pipeline import to_device
+    from ssde_tpu_torch.data.synthetic import make_synthetic_batch
+    from ssde_tpu_torch.train.steps_fusion import TRAIN_FRAMES
+    from ssde_tpu_torch.train.trainer import (FusionScaleLoopTrainer, FusionTrainer,
+                                              FusionV3Trainer)
+
+    torch.backends.cudnn.allow_tf32 = True  # the training configuration
+    classes = {"pyramid": FusionTrainer, "scale_loop": FusionScaleLoopTrainer}
+    counters = _gru_counters()
+    total = dict.fromkeys(counters, 0)
+    log = tempfile.mkdtemp(prefix="ssde_fusion_log_")
+    batch = make_synthetic_batch(MONO_B, H, W, frame_idxs=TRAIN_FRAMES, seed=SEED)
+    try:
+        for label, script, extra in FUSION_TRAIN_RUNS:
+            cls = classes.get(label, FusionV3Trainer)
+            argv = ["--synthetic_data", "--num_epochs", "1", "--mono_pretrained", "0",
+                    "--log_dir", log, "--model_name", label.replace(" --", "_"), *extra]
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with _Observed(cls) as obs:
+                trainer = _fusion_main(script)(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {k: fn.launches for k, fn in counters.items()}
+            for k, v in launched.items():
+                total[k] += v
+            steps, vals = len(obs.history), len(obs.vals)
+            n = FUSION_ATTEND3["v3" if label == "rn_fusion" else label]
+            want = {**dict.fromkeys(counters, 0), "attend3_fwd": n * (steps + vals),
+                    "attend3_bwd": n * steps, "warp_family_fwd": 2 * (steps + vals),
+                    "photometric_fwd": steps + vals, "photometric_bwd": steps}
+            still, stuck = _moved(obs, trainer)
+            opt = trainer.opt
+            print(f"fusion train {label}: main() {wall:.1f} s ({type(trainer).__name__}, "
+                  f"{opt.height}x{opt.width} B={opt.batch_size} {opt.compute_dtype}, frames "
+                  f"{trainer._frame_idxs()}; build, {steps} steps, {vals} val(), save): losses "
+                  + " ".join(f"{h['loss']:.5f}" for h in obs.history)
+                  + f"; launches {({k: v for k, v in launched.items() if v})} (attend3 "
+                  f"{n}/{n} a step); {len(obs.start)} trained parameters [{card}]")
+            if type(trainer) is not cls or (opt.batch_size, opt.height, opt.width,
+                                             opt.compute_dtype) != (MONO_B, H, W, "bfloat16"):
+                fail(f"fusion train {label}: {type(trainer).__name__} at {opt}")
+            if not steps or not all(np.isfinite(v) for h in obs.history for v in h.values()):
+                fail(f"fusion train {label}: {steps} steps, or a loss is not finite")
+            if launched != want:
+                fail(f"fusion train {label}: launches {launched}, expected {want}")
+            if still or stuck:
+                fail(f"fusion train {label}: modules that did not move {still}, "
+                     f"{len(stuck)} parameters with a gradient that did not move")
+
+            # the step alone: chained steps on one batch on the card
+            models, state = trainer.models, trainer.state
+            dbatch = to_device(batch, dev)
+            rng = torch.Generator(dev).manual_seed(SEED)
+            step = lambda: trainer.step_fn(models, state, dbatch, rng)  # noqa: E731
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            k = 5
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            for _ in range(k):
+                losses = step()
+            end.record()
+            last = float(losses["loss"])
+            ms = start.elapsed_time(end) / k
+            per = {name: fn.launches / k for name, fn in counters.items() if fn.launches}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            busy, pwall, _ = _device_idle_share(step, IDLE_STEPS)
+            print(f"fusion train {label} step B={MONO_B} {H}x{W} bf16: {ms:.3f} ms, "
+                  f"{MONO_B * 1e3 / ms:.2f} samples/s (mean of {k} chained after 2 warm-up; "
+                  f"last loss {last:.5f}); launches a step {per}; peak memory {peak:.2f} GiB; "
+                  f"device busy {busy:.1f} ms over {IDLE_STEPS} profiled steps: idle share "
+                  f"{1 - busy / (IDLE_STEPS * ms):.1%} of {IDLE_STEPS} unprofiled steps, "
+                  f"{1 - busy / pwall:.1%} of the profiled wall ({pwall:.1f} ms) [{card}]")
+            if not np.isfinite(last) or per.get("attend3_fwd", 0) != n or per.get(
+                    "attend3_bwd", 0) != n:
+                fail(f"fusion train {label} step: loss {last}, launches a step {per}")
+            del trainer, models, state, dbatch, obs
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(log, ignore_errors=True)
+        torch.backends.cudnn.allow_tf32 = False
+    return total
+
+
+def _fusion_step_run(opts, variant, batch, where, net, fusion_dtype, loss_dtype, select,
+                     pin=None):
+    """One fusion step (forward and backward, without Adam) on ``where``
+    with the encoders, decoder and pose networks in ``net``, the fusion
+    module in ``fusion_dtype`` (its relus through ``pin``) and the geometry,
+    warp and loss in ``loss_dtype``; ``select`` replaces the automask's
+    minimum. Returns (losses, gradients by (module, name) as float64 on the
+    CPU)."""
+    import torch
+
+    import ssde_tpu_torch.train.steps as steps
+    from ssde_tpu_torch.data.pipeline import to_device
+    from ssde_tpu_torch.train import steps_fusion
+
+    models = steps_fusion.build_fusion_models(opts, variant, where,
+                                              torch.Generator().manual_seed(SEED))
+    for m in (models.encoder, models.depth, models.pose_encoder, models.pose):
+        m.to(net)
+    models.fusion.to(fusion_dtype)
+    forward = models.fusion.forward
+    cast = lambda x: ({k: v.to(fusion_dtype) for k, v in x.items()}  # noqa: E731
+                      if isinstance(x, dict) else x.to(fusion_dtype))
+
+    def fusion_forward(*args):
+        with pin.active() if pin else contextlib.nullcontext():
+            return forward(*map(cast, args))
+
+    models.fusion.forward = fusion_forward
+    if pin:
+        pin.start(replay=fusion_dtype != torch.float64)
+    inputs = steps_fusion.preprocess_fusion_train(to_device(batch, where), opts)
+    inputs = {k: v.to(net) if k.startswith("color_aug") else
+              v.to(loss_dtype) if v.is_floating_point() else v for k, v in inputs.items()}
+    models.train()
+    patched = {"min_reprojection": select or steps.min_reprojection,
+               "_full": lambda t: t.to(loss_dtype)}
+    plain = {k: getattr(steps, k) for k in patched}
+    try:
+        for k, v in patched.items():
+            setattr(steps, k, v)
+        _, losses, _ = steps_fusion.fusion_loss_fn(models, inputs)
+        losses["loss"].backward()
+    finally:
+        for k, v in plain.items():
+            setattr(steps, k, v)
+    groups = dict(zip(("encoder", "depth", "fusion", "pose_encoder", "pose"), models.modules()))
+    trained = {id(p) for p in models.parameters()}
+    grads = {(g, k): (torch.zeros(p.shape, dtype=torch.float64) if p.grad is None
+                      else p.grad.detach().cpu().double())
+             for g, m in groups.items() for k, p in m.named_parameters() if id(p) in trained}
+    return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def fusion_card_vs_cpu(dev):
+    """Phase 23 (c): one fusion step of each variant at 64x128, B=2, card vs
+    CPU and each against an all-float64 CPU run, by phase 12 (b)'s recipe:
+    the networks in float64, the fusion module and the loss in float32 (the
+    kernels on the card, their plain versions on the CPU), the fusion
+    module's relu masks and the automask argmin from the float64 run.
+    Bounds: losses TOL_STEP_LOSS relative; each gradient TOL_STEP_GRAD of
+    its float64 max, or of FUSION_GRAD_FLOOR of its module's largest where
+    its max is below that."""
+    import torch
+
+    from ssde_tpu_torch.config import Options
+    from ssde_tpu_torch.data.synthetic import make_synthetic_batch
+    from ssde_tpu_torch.train.steps_fusion import TRAIN_FRAMES
+
+    h, w = FUSION_CPU_HW
+    batch = make_synthetic_batch(2, h, w, frame_idxs=TRAIN_FRAMES, seed=SEED + 3)
+    f32, f64 = torch.float32, torch.float64
+    for label, variant, extra in FUSION_RUNS:
+        opts = Options(height=h, width=w, batch_size=2, compute_dtype="float32",
+                       disable_attention="--disable_attention" in extra)
+        selected, switches = [], {}
+
+        def pinned(name):
+            switches[name] = []
+            return _selection(selected, switches=switches[name])
+
+        pin = _ReluPin()
+        t0 = time.perf_counter()
+        l64, g64 = _fusion_step_run(opts, variant, batch, "cpu", f64, f64, f64,
+                                    _selection(record=selected), pin)
+        lg, gg = _fusion_step_run(opts, variant, batch, dev, f64, f32, f32, pinned("card"), pin)
+        lc, gc = _fusion_step_run(opts, variant, batch, "cpu", f64, f32, f32, pinned("CPU"),
+                                  pin)
+        secs = time.perf_counter() - t0
+        lrel = {"card vs CPU": max(abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc),
+                "card vs float64": max(abs(lg[k] - l64[k]) / abs(l64[k]) for k in l64),
+                "CPU vs float64": max(abs(lc[k] - l64[k]) / abs(l64[k]) for k in l64)}
+        ok = max(lrel.values()) <= TOL_STEP_LOSS and all(np.isfinite(v) for v in lg.values())
+        rows = []
+        for grp in ("encoder", "depth", "fusion", "pose_encoder", "pose"):
+            keys = [k for k in g64 if k[0] == grp]
+            size = {k: g64[k].abs().max().item() for k in keys}
+            scale = {k: max(size[k], FUSION_GRAD_FLOOR * max(size.values())) for k in keys}
+
+            def err(a, b):  # worst over the group of |a - b| / scale
+                return max((a[k] - b[k]).abs().max().item() / scale[k] for k in keys)
+
+            e = {"card vs CPU": err(gg, gc), "card vs float64": err(gg, g64),
+                 "CPU vs float64": err(gc, g64)}
+            ok = ok and max(e.values()) <= TOL_STEP_GRAD
+            rows.append(f"{grp} " + "/".join(f"{v:.2e}" for v in e.values()))
+        print(f"fusion card vs CPU {label}: one step at {h}x{w} B=2 (networks float64, fusion "
+              f"and loss float32; {secs:.1f} s): loss card {lg['loss']:.8f}, CPU "
+              f"{lc['loss']:.8f}, float64 {l64['loss']:.8f}; worst rel " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in lrel.items()) + f" (bound {TOL_STEP_LOSS}); "
+              f"automask switches " + ", ".join(f"{sum(v)} ({k})" for k, v in switches.items())
+              + f"; relu flips {pin.flips}; gradients card vs CPU / card vs float64 / CPU vs "
+              f"float64 of max (bound {TOL_STEP_GRAD}): " + "; ".join(rows))
+        if not ok:
+            fail(f"fusion card vs CPU {label}: the card and the CPU disagree")
+
+
+def fusion_kitti(dev, card, root, data, splits):
+    """Phase 23 (d): FusionV3Trainer through train_fusion_v3.main() for one
+    epoch on phase 19's tree, with a train_files_seq.txt beside its lists:
+    the seq list is the one read, phase 19's checks (finite losses, moved
+    parameters, the 7 depth metrics of val(), the launches, weights_0 with
+    fusion.pth), a trainer reloaded with no --models_to_load bit-identical
+    and the further step within phase 8's tolerance (_kitti_reload); the
+    loader's items/s over the list (4 JPEGs an item). Returns the run's
+    launches."""
+    import torch
+
+    from ssde_tpu_torch.config import MonodepthOptions
+    from ssde_tpu_torch.data.kitti import KITTIRAWDataset
+    from ssde_tpu_torch.scripts import train_fusion_v3
+    from ssde_tpu_torch.train.steps_fusion import TRAIN_FRAMES
+    from ssde_tpu_torch.train.trainer import FusionV3Trainer
+
+    torch.backends.cudnn.allow_tf32 = True  # the training configuration
+    seq_path = os.path.join(splits, "eigen_zhou", "train_files_seq.txt")
+    # frames whose neighbours -2 .. +1 all exist, unlike train_files.txt's first
+    seq = [f"{KITTI_DRIVE} {i} l" for i in range(2, 2 + MONO_B * FUSION_KITTI_STEPS)]
+    with open(seq_path, "w") as f:
+        f.write("\n".join(seq) + "\n")
+    counters = _gru_counters()
+    try:
+        parse = MonodepthOptions().parse
+        argv = ["--data_path", data, "--num_epochs", "1", "--log_frequency", "2",
+                "--mono_pretrained", "0", "--log_dir", os.path.join(root, "log"),
+                "--model_name", "fusion_v3"]
+        trainer, folder = _kitti_trainer_run(
+            "fusion v3", FusionV3Trainer, train_fusion_v3.main, argv,
+            ["encoder.pth", "depth.pth", "pose_encoder.pth", "pose.pth", "fusion.pth",
+             "adam.pth"],
+            ["attend3_fwd", "attend3_bwd", "warp_family_fwd", "photometric_fwd",
+             "photometric_bwd"], card, gradless_ok=True)
+        launched = {k: fn.launches for k, fn in counters.items()}
+        read = trainer.train_dataset.filenames
+        with open(os.path.join(splits, "eigen_zhou", "train_files.txt")) as f:
+            plain = f.read().splitlines()
+        print(f"kitti fusion v3: trained on {len(read)} lines, {read[0]!r} .. {read[-1]!r} "
+              f"(train_files_seq.txt has {len(seq)} from {seq[0]!r}, train_files.txt "
+              f"{len(plain)} from {plain[0]!r}) in {trainer.step} steps")
+        if read != seq or trainer.step != FUSION_KITTI_STEPS:
+            fail(f"kitti fusion v3: read {len(read)} lines in {trainer.step} steps, not the "
+                 f"{len(seq)} of train_files_seq.txt")
+        _kitti_reload("fusion v3", train_fusion_v3.build_trainer, parse, argv, trainer, folder,
+                      card, FUSION_GRAD_FLOOR)
+        del trainer
+        torch.cuda.empty_cache()
+        rate = _loader_rate(KITTIRAWDataset(data, seq, H, W, list(TRAIN_FRAMES), is_train=True),
+                            parse([]).num_workers)
+        print(f"kitti fusion loader (Loader, B={MONO_B}, frames {list(TRAIN_FRAMES)} at {H}x{W}, "
+              f"4 JPEGs and depth_gt an item): {rate:.1f} items/s [{card}]")
+    finally:
+        os.remove(seq_path)
+        torch.backends.cudnn.allow_tf32 = False
+    return launched
+
+
+def fusion_training(dev, card, root, data, splits):
+    """Phase 23: fusion training. (a) #4 at the fusion shapes; (b) each
+    trainer through its entry point; (c) card vs CPU; (d) the v3 trainer
+    on phase 19's tree. Returns (launches of the main path, (b) and (d),
+    by kernel; #4's worst errors; #4's times per step of each variant)."""
+    import torch
+
+    phase0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs, times = fusion_bwd_kernels(dev, card)
+    total = fusion_train_runs(dev, card)  # leaves TF32 off again
+    fusion_card_vs_cpu(dev)
+    for k, v in fusion_kitti(dev, card, root, data, splits).items():
+        total[k] += v
+    print(f"fusion: phase 23 took {time.perf_counter() - phase0:.1f} s; launches of its main "
+          f"path {({k: v for k, v in total.items() if v})} [{card}]")
     return total, errs, times
 
 

@@ -32,14 +32,16 @@ def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False) -> tor
     """Bilinear resize (B, C, H, W) -> (B, C, out_h, out_w), the JAX
     function's arithmetic: ``align_corners=False`` takes source coordinate
     (i + 0.5) * in/out - 0.5 clamped at 0 (torch ``F.interpolate``'s
-    convention); ``align_corners=True`` takes i * (in-1) / (out-1)."""
+    convention); ``align_corners=True`` takes i * (in-1) / (out-1). The
+    coordinates and the interpolation are float32, or float64 for a float64
+    ``x`` (a reference run)."""
     B, C, H, W = x.shape
     out_h, out_w = out_hw
     dtype = x.dtype
     x = x if dtype == torch.float64 else x.float()
 
     def src_coords(out_size, in_size):
-        i = torch.arange(out_size, dtype=torch.float32, device=x.device)
+        i = torch.arange(out_size, dtype=x.dtype, device=x.device)
         if align_corners:
             if out_size == 1:
                 return torch.zeros_like(i)
@@ -50,8 +52,8 @@ def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False) -> tor
     y0 = torch.clamp(torch.floor(ys).long(), 0, H - 1)
     x0 = torch.clamp(torch.floor(xs).long(), 0, W - 1)
     y1, x1 = torch.clamp(y0 + 1, max=H - 1), torch.clamp(x0 + 1, max=W - 1)
-    wy = (ys - y0.float())[None, None, :, None]
-    wx = (xs - x0.float())[None, None, None, :]
+    wy = (ys - y0.to(x.dtype))[None, None, :, None]
+    wx = (xs - x0.to(x.dtype))[None, None, None, :]
     rows0, rows1 = x[:, :, y0], x[:, :, y1]
     top = rows0[..., x0] * (1 - wx) + rows0[..., x1] * wx
     bot = rows1[..., x0] * (1 - wx) + rows1[..., x1] * wx

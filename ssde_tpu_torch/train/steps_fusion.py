@@ -1,6 +1,5 @@
-"""The 3-frame attention-fusion models in serving (counterpart of the model
-bundle and forward of ``ssde_tpu/train/steps_fusion.py``, :49-77 and
-:123-149).
+"""The 3-frame attention-fusion models: the bundle, serving and the train
+step (counterpart of ``ssde_tpu/train/steps_fusion.py``).
 
 Three variants, as in the JAX package:
 
@@ -18,23 +17,34 @@ pass and are split afterwards, in temporal order, the JAX package's
 (``steps_fusion.py:13-19``), not the reference ``trainer.py``'s [-2, -1, 0].
 The bundle also holds the pose networks of the fusion trainers, which
 serving does not run.
+
+Training (:func:`fusion_loss_fn`, :func:`train_step`) runs the fusion on
+the augmented frames, then the mono step's poses, warp and loss with
+sources (-1, 1) (``steps_fusion.py:117-177``). Precision is the mono
+step's: the networks under autocast in ``compute_dtype``, the geometry,
+warp and loss in float32.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from ..config import Options
+from ..data.transforms import preprocess_batch
 from ..models import (DepthDecoder, FeatureFusionBlock, Fusion, Fusion_v3, PoseDecoder,
                       ResnetEncoder)
 from ..models.common import init_weights_
+from . import steps
+from .state import TrainState
 
 VARIANTS = ("pyramid", "v3", "scale_loop")
 # the frames that ride the batch axis, in this order
 CONTEXT_IDS = (0, -1, -2)
+# the frames a training batch carries (ssde_tpu/train/steps_fusion.py:166)
+TRAIN_FRAMES = (0, -1, -2, 1)
 
 
 @dataclasses.dataclass
@@ -49,10 +59,28 @@ class FusionModels:
     opts: Options
     variant: str  # one of VARIANTS
 
+    # the warp sources of the loss (ssde_tpu/train/steps_fusion.py:58)
+    source_ids = (-1, 1)
+
     @property
     def pre_disp(self) -> bool:
         """The pyramid fuses the decoder's pre-disp features."""
         return self.variant == "pyramid"
+
+    def modules(self):
+        return (self.encoder, self.depth, self.fusion, self.pose_encoder, self.pose)
+
+    def parameters(self) -> List[torch.nn.Parameter]:
+        """The parameters the step trains. Under ``pre_disp`` (the pyramid)
+        the decoder's ``dispconv_*`` heads never run and are left out, as
+        the JAX tree has no such entries."""
+        skip = {id(p) for p in self.depth.dispconv_parameters()} if self.pre_disp else set()
+        return [p for m in self.modules() for p in m.parameters() if id(p) not in skip]
+
+    def train(self, mode: bool = True) -> "FusionModels":
+        for m in self.modules():
+            m.train(mode)
+        return self
 
 
 def build_fusion_models(opts: Options, variant: str, device="cuda",
@@ -86,14 +114,17 @@ def build_fusion_models(opts: Options, variant: str, device="cuda",
     return FusionModels(*mods, opts, variant)
 
 
-def fuse(models: FusionModels, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def fuse(models: FusionModels, inputs: Dict[str, torch.Tensor], key: str = "color"
+         ) -> Dict[str, torch.Tensor]:
     """The fused ``disp/{s}`` of a preprocessed batch: frames
-    ``color/{i}/0`` for i in 0, -1, -2 through one encoder and decoder pass
-    (pre-disp features for the pyramid), split into the three per-frame
-    dicts, then the fusion (``ssde_tpu/train/steps_fusion.py:123-149``).
-    Runs the modules in the modes they are in."""
-    B = inputs["color/0/0"].shape[0]
-    x = torch.cat([inputs[f"color/{i}/0"] for i in CONTEXT_IDS], 0)
+    ``{key}/{i}/0`` for i in 0, -1, -2 (``color`` in evaluation,
+    ``color_aug`` in training) through one encoder and decoder pass
+    (pre-disp features for the pyramid; BatchNorm pools over the 3B
+    frames), split into the three per-frame dicts, then the fusion
+    (``ssde_tpu/train/steps_fusion.py:123-149``). Runs the modules in the
+    modes they are in."""
+    B = inputs[f"{key}/0/0"].shape[0]
+    x = torch.cat([inputs[f"{key}/{i}/0"] for i in CONTEXT_IDS], 0)
     dec_all = models.depth(models.encoder(x), pre_disp=models.pre_disp)
     # batch slices of contiguous maps, so the attention kernel's operands
     # made from them are contiguous too
@@ -126,3 +157,41 @@ def fusion_infer(models: FusionModels, inputs: Dict[str, torch.Tensor]
     finally:
         for m, mode in zip(mods, modes):
             m.train(mode)
+
+
+def fusion_loss_fn(models: FusionModels, inputs, generator: Optional[torch.Generator] = None):
+    """:func:`fuse` of the augmented frames, poses for (-1, 1) from one
+    pose-encoder pass, then the mono step's warp and loss with sources
+    (-1, 1) (``ssde_tpu/train/steps_fusion.py:117-157``); returns (loss,
+    losses, outputs). The modules' train/eval mode decides BatchNorm."""
+    opts = models.opts
+    device = inputs["color_aug/0/0"].device
+    with steps._autocast(opts, device):
+        outputs = fuse(models, inputs, "color_aug")
+        outputs.update(steps.predict_poses(models, inputs))
+    with torch.autocast(device.type, enabled=False):
+        outputs = steps.generate_images_pred(inputs, outputs, opts, models.source_ids)
+        losses = steps.compute_losses(inputs, outputs, opts, models.source_ids, generator)
+    return losses["loss"], losses, outputs
+
+
+def preprocess_fusion_train(batch, opts: Options):
+    """The fusion train step's preprocessing: frames 0, -1, -2 and 1,
+    jitter on, frame 0's pyramid and the scale-0 augmented frames only
+    (``ssde_tpu/train/steps_fusion.py:164-168``)."""
+    return preprocess_batch(batch, opts.height, opts.width, opts.num_scales,
+                            list(TRAIN_FRAMES), is_train=True, pyramid_frames=[0],
+                            aug_num_scales=1)
+
+
+def train_step(models: FusionModels, state: TrainState, batch,
+               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """One optimizer step on a device batch: preprocess, forward in train
+    mode, backward, Adam. Returns the losses (detached, on the device)."""
+    inputs = preprocess_fusion_train(batch, models.opts)
+    models.train()
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, losses, _ = fusion_loss_fn(models, inputs, generator)
+    loss.backward()
+    state.apply_gradients()
+    return {k: v.detach() for k, v in losses.items()}

@@ -1,5 +1,6 @@
-"""The mono trainer (counterpart of ``ssde_tpu/train/trainer.py``
-``TrainerBase`` and ``Trainer``, :55-392).
+"""The mono and fusion trainers (counterpart of ``ssde_tpu/train/trainer.py``
+``TrainerBase`` and ``Trainer``, :55-392, and the fusion trainers,
+:403-458).
 
 An epoch loop around :func:`ssde_tpu_torch.train.steps.train_step`: the
 loader decodes KITTI items from ``--data_path`` (``--dataset`` kitti,
@@ -23,6 +24,13 @@ TensorBoard writer or ``device_prefetch`` yet.
 
 The port's warp is exact, so it reports no ``warp/band_violation`` and the
 JAX trainer's ``_check_band_violation`` guard has nothing to check.
+
+The fusion trainers (``FusionTrainer``, ``FusionV3Trainer``,
+``FusionScaleLoopTrainer``) run :func:`ssde_tpu_torch.train.steps_fusion.train_step`
+on frames [0, -1, -2, 1] and save ``fusion.pth`` beside the mono modules.
+Resuming from a folder with the default ``--models_to_load`` restores
+``fusion.pth`` too (the default list, a copy of the JAX package's, does
+not name it); a list given that leaves ``fusion`` out leaves it out.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from ..data.splits import readlines, split_file
 from ..data.synthetic import SyntheticKittiDataset
 from ..data.transforms import preprocess_batch
 from ..eval.depth import _resize_bilinear_np, compute_errors
+from . import steps_fusion
 from .state import TrainState
 from .steps import build_mono_models, check_supported, mono_loss_fn, train_step
 
@@ -167,10 +176,12 @@ def device_batch(host: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]
 
 class TrainerBase:
     """Data, models, optimizer and the epoch loop; the step itself is
-    :attr:`step_fn`, :func:`ssde_tpu_torch.train.steps.train_step` here.
+    :attr:`step_fn`, :func:`ssde_tpu_torch.train.steps.train_step` here,
+    and :attr:`loss_fn` the forward that :meth:`process_batch` runs.
     Runs on the card unless ``device`` or ``--no_cuda`` asks for the CPU."""
 
     step_fn = staticmethod(train_step)
+    loss_fn = staticmethod(mono_loss_fn)
     check_supported = staticmethod(check_supported)
 
     def __init__(self, options: Options, device=None, seed: int = 0):
@@ -214,6 +225,10 @@ class TrainerBase:
             ids.append("s")
         return ids
 
+    def _train_files(self) -> List[str]:
+        """The training split's lines (``ssde_tpu/train/trainer.py:102-103``)."""
+        return readlines(split_file(self.opt.split, "train"))
+
     def _build_data(self):
         opt = self.opt
         ids = self._frame_idxs()
@@ -230,7 +245,7 @@ class TrainerBase:
                       "kitti_depth": KITTIDepthDataset}.get(opt.dataset, KITTIRAWDataset)
             img_ext = ".png" if opt.png else ".jpg"
             self.train_dataset = ds_cls(
-                opt.data_path, readlines(split_file(opt.split, "train")), opt.height,
+                opt.data_path, self._train_files(), opt.height,
                 opt.width, ids, is_train=True, img_ext=img_ext,
                 decoded_cache=opt.decoded_cache)
             self.val_dataset = ds_cls(
@@ -320,7 +335,7 @@ class TrainerBase:
                                   self.opt.num_scales, self._frame_idxs(), is_train=False)
         self.models.train(False)
         with torch.no_grad():
-            _, losses, outputs = mono_loss_fn(self.models, inputs, generator)
+            _, losses, outputs = self.loss_fn(self.models, inputs, generator)
         return inputs, outputs, losses
 
     def val(self) -> Dict[str, float]:
@@ -366,7 +381,7 @@ class TrainerBase:
         if not os.path.isdir(folder):
             raise FileNotFoundError(f"Cannot find folder {folder}")
         print(f"loading model from folder {folder}")
-        _, loaded = checkpoint.load_folder(folder, self.models, self.opt.models_to_load)
+        _, loaded = checkpoint.load_folder(folder, self.models, self._models_to_load())
         print(f"loaded {loaded}")
         adam = os.path.join(folder, "adam.pth")
         if not os.path.isfile(adam):
@@ -375,6 +390,68 @@ class TrainerBase:
             steps = [int(s["step"]) for s in self.state.optimizer.state.values() if "step" in s]
             self.state.step = max(steps, default=0)
 
+    def _models_to_load(self) -> List[str]:
+        """The modules :meth:`load_model` reads: ``--models_to_load``."""
+        return list(self.opt.models_to_load)
+
 
 class Trainer(TrainerBase):
     """Plain monodepth2-style training."""
+
+
+class _FusionTrainerBase(TrainerBase):
+    """The 3-frame fusion trainers: frames [0, -1, -2, 1] and the fusion
+    train step of the subclass's ``fusion_variant``."""
+
+    step_fn = staticmethod(steps_fusion.train_step)
+    loss_fn = staticmethod(steps_fusion.fusion_loss_fn)
+
+    def __init__(self, options: Options, device=None, seed: int = 0):
+        # the reference trainer forces the 3-frame context (trainer.py:55)
+        options.frame_ids = [0, -2, -1, 1]
+        super().__init__(options, device, seed)
+
+    def _frame_idxs(self):
+        return list(steps_fusion.TRAIN_FRAMES)
+
+    def _build_models(self):
+        return steps_fusion.build_fusion_models(self.opt, self.fusion_variant, self.device,
+                                                torch.Generator().manual_seed(self.seed))
+
+    def _models_to_load(self) -> List[str]:
+        """``--models_to_load``, and ``fusion`` when that is the default list,
+        which does not name it: a run resumed from its own ``weights_N/``
+        restores its fusion module with the rest."""
+        names = super()._models_to_load()
+        return names + ["fusion"] if names == Options().models_to_load else names
+
+
+class FusionTrainer(_FusionTrainerBase):
+    """The pre-disp PixelShuffle pyramid (``Fusion``; reference
+    trainer_fusion.py)."""
+
+    fusion_variant = "pyramid"
+
+
+class FusionV3Trainer(_FusionTrainerBase):
+    """``Fusion_v3`` on the sigmoid disparities, attention units or, under
+    ``--disable_attention``, conv units (reference trainer_fusion_v3.py,
+    whose optimizer step is commented out; this one optimizes, as the JAX
+    trainer does)."""
+
+    fusion_variant = "v3"
+
+    def _train_files(self) -> List[str]:
+        """``train_files_seq.txt`` (frames whose neighbours at +-2 all exist,
+        reference trainer_fusion_v3.py:168) where the split has it, else
+        ``train_files.txt`` (``ssde_tpu/train/trainer.py:445-452``)."""
+        path = split_file(self.opt.split, "train")
+        seq = os.path.join(os.path.dirname(path), "train_files_seq.txt")
+        return readlines(seq if os.path.exists(seq) else path)
+
+
+class FusionScaleLoopTrainer(_FusionTrainerBase):
+    """One shared ``FeatureFusionBlock`` applied per scale (reference
+    trainer.py)."""
+
+    fusion_variant = "scale_loop"

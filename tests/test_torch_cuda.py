@@ -16,8 +16,9 @@ input stages (float32 8 or 16, bf16 16 or 32), output blocks (8, 32 or 64)
 and MMA multiples, reflect padding at its 2-pixel minimum, 1- and 2-pixel
 maps, the Cout = 1 heads and the 1-channel convs of their dx (K = 9), and
 the recurrent family's small-channel convs (Cin and Cout 1 to 6) and
-2-channel attention, and the 3-frame fusion blocks' attention (C = 2, 4
-and 256, channel-shared embeddings) and modules.
+2-channel attention, and the 3-frame fusion blocks' attention (C = 2, 4,
+32 and 256, channel-shared embeddings, their gradients through #4),
+modules and train step.
 Bounds as in chip_smoke.py: float32 1e-4 relative to max|ref| and, against
 float64, 4x the plain float32 conv's own error; bfloat16 1e-2 against the
 float32 twin on the same bf16-rounded inputs.
@@ -712,6 +713,63 @@ def test_fusion_on_the_card_matches_the_cpu(dev, variant):
     assert attend3_fwd.launches - before == 24
     for k in want:
         assert _rel(got[k].cpu(), want[k]) <= 1e-4, k
+
+
+@pytest.mark.parametrize("C", [2, 4, 32])
+def test_shared_embedding_gradients_through_the_kernel(dev, C):
+    """An AttentionConv with channel-shared embeddings at a fusion width
+    (the rel_h | rel_w split 1 | 1 at C = 2, 2 | 2 at C = 4) through #3/#4
+    on the card against its plain path on the CPU: the output and every
+    gradient, rel_h and rel_w (#4's drel summed through the expand)
+    included, 1e-4 of max (the key bias, whose gradient is 0, against the
+    largest)."""
+    torch.manual_seed(C)
+    cpu = AttentionConv(C, C, 3, use_bias=True, shared_rel=True)
+    card = AttentionConv(C, C, 3, use_bias=True, shared_rel=True).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    x, r = torch.randn(2, C, 24, 80), torch.randn(2, C, 24, 80)
+    xs = [x.clone().requires_grad_(), x.to(dev).requires_grad_()]
+    outs = [cpu(xs[0]), card(xs[1], kernel=True)]
+    for o, rr in zip(outs, (r, r.to(dev))):
+        (o * rr).sum().backward()
+    assert _rel(outs[1].cpu(), outs[0].detach()) <= 1e-4
+    assert _rel(xs[1].grad.cpu(), xs[0].grad) <= 1e-4
+    scale = max(p.grad.abs().max() for p in cpu.parameters())
+    for (name, a), b in zip(card.named_parameters(), cpu.parameters()):
+        ref = scale if name == "key_conv.bias" else b.grad.abs().max()
+        assert ((a.grad.cpu() - b.grad).abs().max() / ref).item() <= 1e-4, name
+
+
+@pytest.mark.parametrize("variant,attention", [("pyramid", True), ("v3", True), ("v3", False),
+                                               ("scale_loop", True)])
+def test_fusion_train_step_on_the_card(dev, variant, attention):
+    """One fusion train step at 64x128, B=2, float32 (TF32 off) on the card
+    and on the CPU from the same weights and batch: #3 and #4 launched 24
+    times each (none with conv units), the warp twice, the photometric
+    forward and backward once; finite losses, the card's within 1e-4 of the
+    CPU's."""
+    from ssde_tpu_torch.config import Options
+    from ssde_tpu_torch.data.pipeline import to_device
+    from ssde_tpu_torch.data.synthetic import make_synthetic_batch
+    from ssde_tpu_torch.train.state import TrainState
+    from ssde_tpu_torch.train.steps_fusion import TRAIN_FRAMES, build_fusion_models, train_step
+
+    opts = Options(height=64, width=128, batch_size=2, compute_dtype="float32",
+                   disable_attention=not attention)
+    batch = make_synthetic_batch(2, 64, 128, frame_idxs=TRAIN_FRAMES, seed=0)
+    counters = (attend3_fwd, attend3_bwd, warp_family_fwd, photometric_fwd, photometric_bwd)
+    loss = {}
+    for where in ("cpu", dev):
+        models = build_fusion_models(opts, variant, where, torch.Generator().manual_seed(0))
+        state = TrainState(models.parameters(), 1e-4, 15, 1)
+        before = [f.launches for f in counters]
+        losses = train_step(models, state, to_device(batch, where))
+        loss[str(where)] = float(losses["loss"])
+        assert all(torch.isfinite(v) for v in losses.values())
+    torch.cuda.synchronize()
+    n = 24 if attention else 0
+    assert [f.launches - b for f, b in zip(counters, before)] == [n, n, 2, 1, 1]
+    assert abs(loss[str(dev)] - loss["cpu"]) <= 1e-4 * abs(loss["cpu"])
 
 
 def test_a_folder_saved_on_the_card_loads_on_the_cpu(dev, tmp_path):
