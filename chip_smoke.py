@@ -156,6 +156,25 @@ Phases, each fatal on failure:
              7 depth metrics, weights_0 with fusion.pth, a trainer
              reloaded with no --models_to_load bit-identical, the loader's
              items/s (4 JPEGs an item)
+ 24. dpt train     train_dpt for the models it did not train before: (a) #7
+             at S = 1 and #5/#6 at the DPT step's G = 4B = 48 (B=12,
+             640x192) against their plain versions (phase 6's tolerances),
+             timed beside their bounds and F.grid_sample; (b) train_dpt's
+             main() with no --model, the DPT-hybrid (ViT-B/16 on a
+             ResNet-50 stem, 118 M parameters, frames [0, -1, 1], scale 0),
+             and (c) with --model rn_encoder_with_attention, each at the
+             Options defaults (B=12, bf16, synthetic data, an epoch of 8
+             steps and its val()): finite losses, every module moved, the
+             launches (attend3 none: the 7x7 attention convs run the plain
+             path), weights_0 with dpt.pth or encoder.pth; then the step's
+             ms, samples/s, peak memory, idle share and top device
+             operations; (d) one step of each at 64x128, B=2, card vs CPU
+             and each against float64 (networks float64, the loss float32,
+             the automask argmin of the float64 run); (e) a DPTTrainer
+             reloaded from weights_0 with the default --models_to_load
+             bit-identical, Adam's step count included, and the attention
+             maps of a forward at 640x192 summing to 1, the mean map
+             (B, 12, 40)
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, each with its launches on the main path (for
@@ -169,7 +188,11 @@ fusion trainers' runs, is added to attend3_fwd's, attend3_bwd's, the
 warp's and the photometric kernels' counts and given alone as
 ``fusion_train_launches``, with #4's worst errors at the fusion shapes
 and its times for one step of each variant at B=12 bf16 under
-``fusion_*`` of attend3_bwd), its time, its plain
+``fusion_*`` of attend3_bwd; phase 24's, train_dpt's DPT and
+attention-encoder runs, is added to the warp's and the photometric
+kernels' counts and given alone as ``dpt_train_launches``, with their
+worst errors and times at the DPT step's shapes under ``dpt_*``), its
+time, its plain
 version's (conv3x3_fwd: float32 serving at B=1, and under bf16_b8_* and
 f32_b8_* its bf16 and float32 bodies at a B=8 frame-step; conv3x3_dx and
 conv3x3_dw: bf16, and float32 under f32_b8_*; attend3_fwd and attend3_bwd:
@@ -522,6 +545,14 @@ def main() -> None:
         fusion_bf16_max_rel_err=max(v for k, v in bwd_errs.items() if k.startswith("bf16")),
         **{f"fusion_b12_bf16_{label}_{k}": v
            for label, entry in bwd_times.items() for k, v in entry.items()})
+    # phase 24's main path (train_dpt's DPT and attention-encoder runs) adds to
+    # the warp's and the photometric kernels' counts
+    dpt_count, dpt_errs, dpt_times = dpt_training(dev, card)
+    for name in ("warp_family_fwd", "photometric_fwd", "photometric_bwd"):
+        kernels[name]["launches"] += dpt_count[name]
+        kernels[name]["dpt_train_launches"] = dpt_count[name]
+        kernels[name]["dpt_max_abs_err"] = dpt_errs[name]
+        kernels[name].update({f"dpt_b12_{k}": v for k, v in dpt_times[name].items()})
     print(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s [{card}]")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -3861,6 +3892,391 @@ def fusion_training(dev, card, root, data, splits):
         total[k] += v
     print(f"fusion: phase 23 took {time.perf_counter() - phase0:.1f} s; launches of its main "
           f"path {({k: v for k, v in total.items() if v})} [{card}]")
+    return total, errs, times
+
+
+# ==================================================== train_dpt: DPT and attention
+
+# phase 24's runs of train_dpt.main(): (label, extra arguments, trainer class
+# name, the depth network's module files in weights_0)
+DPT_TRAIN_RUNS = (("dpt_gru", [], "DPTTrainer", ("dpt",)),
+                  ("rn_encoder_with_attention", ["--model", "rn_encoder_with_attention"],
+                   "AttentionTrainer", ("encoder", "depth")))
+DPT_CPU_HW = (64, 128)  # phase 24 (d): card vs CPU, B=2
+# the DPT step's photometric launch: scale 0 only, 2 sources, warped and
+# identity maps: G = (S + 1) * F * B with S = 1, F = 2
+DPT_G = 4 * MONO_B
+
+
+def dpt_kernels(dev, card):
+    """Phase 24 (a): the family warp (#7) at S = 1 (the DPT step warps one
+    full-resolution disparity per source) and the photometric forward and
+    backward (#5/#6) at the DPT step's G = 4B = 48, B=12, 640x192, against
+    their plain versions (phase 6's tolerances), then each timed beside its
+    plain version, the bound and a library call where one computes the same
+    function. Returns (worst errors, times) by kernel."""
+    import torch
+
+    from ssde_tpu_torch.ops.photometric import (photometric_bwd, photometric_bwd_reference,
+                                                photometric_fwd, photometric_reference, work)
+    from ssde_tpu_torch.ops.warp import warp_family_reference
+    from ssde_tpu_torch.ops.warp_banded import grad_masks, warp_family_fwd
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    B, S = MONO_B, 1
+    img = torch.rand(B, 3, H, W, device=dev, generator=gen)
+    grids = _mono_grids(dev, B, H, W, gen, S=S)
+    with torch.no_grad():
+        got, want = warp_family_fwd(img, grids), warp_family_reference(img, grids)
+    cot = torch.randn(S * B, 3, H, W, device=dev, generator=gen)
+    in_x, in_y = grad_masks(grids, H, W)
+
+    def dgrid(rdx, rdy):
+        return torch.stack([(cot * rdx).sum(1).reshape(S, B, H, W) * in_x,
+                            (cot * rdy).sum(1).reshape(S, B, H, W) * in_y], -1)
+
+    werr = max((a - b).abs().max().item() for a, b in zip(got, want))
+    gerr = _rel(dgrid(*got[1:]), dgrid(*want[1:]))
+    # the step's pairs: the 2 warped maps of each item, then the 2 identity maps
+    preds = torch.cat([got[0]] + [torch.rand(B, 3, H, W, device=dev, generator=gen)
+                                  for _ in range(DPT_G // B - S)]).contiguous()
+    gout = torch.randn(DPT_G, H, W, device=dev, generator=gen) / preds[0].numel()
+    with torch.no_grad():
+        pf, pf_ref = photometric_fwd(preds, img), photometric_reference(preds, img)
+        pb, pb_ref = photometric_bwd(preds, img, gout), photometric_bwd_reference(preds, img, gout)
+    torch.cuda.synchronize()
+    ferr, berr = (pf - pf_ref).abs().max().item(), _rel(pb, pb_ref)
+    errs = {"warp_family_fwd": werr, "photometric_fwd": ferr,
+            "photometric_bwd": (pb - pb_ref).abs().max().item()}
+    print(f"dpt kernels vs plain versions at B={B} {H}x{W}: warp S={S} abs {werr:.3e}, grid "
+          f"grad rel {gerr:.3e} (bound {TOL_WARP}); photometric G={DPT_G} fwd abs {ferr:.3e} "
+          f"(bound {TOL_PHOTO}), bwd rel {berr:.3e} (bound {TOL_PHOTO_BWD})")
+    if not (werr <= TOL_WARP and gerr <= TOL_WARP and ferr <= TOL_PHOTO
+            and berr <= TOL_PHOTO_BWD):
+        fail("dpt kernels: a kernel disagrees with its plain version at the DPT step's shapes")
+
+    n_warp, n_img = S * B * 3 * H * W, B * 3 * H * W
+    pairs = {"warp_family_fwd": (lambda: warp_family_fwd(img, grids),
+                                 lambda: warp_family_reference(img, grids),
+                                 lambda: torch.nn.functional.grid_sample(
+                                     img, grids[0], padding_mode="border", align_corners=False),
+                                 (20 * n_warp, 4 * (n_img + S * B * H * W * 2 + 3 * n_warp))),
+             "photometric_fwd": (lambda: photometric_fwd(preds, img),
+                                 lambda: photometric_reference(preds, img), None,
+                                 work("fwd", DPT_G, B, 3, H, W)),
+             "photometric_bwd": (lambda: photometric_bwd(preds, img, gout),
+                                 lambda: photometric_bwd_reference(preds, img, gout), None,
+                                 work("bwd", DPT_G, B, 3, H, W))}
+    print(f"dpt kernel times on {card} (CUDA events; 20 launches after 3 warm-up, order plain, "
+          f"kernel, kernel, plain; library: F.grid_sample border on the S grid, no residuals)")
+    times = {}
+    with torch.no_grad():
+        for name, (k, p, lib, cost) in pairs.items():
+            tp1, tk1, tk2, tp2 = cuda_ms(p), cuda_ms(k), cuda_ms(k), cuda_ms(p)
+            tl = None if lib is None else cuda_ms(lib)
+            bms, by = bound(*cost, "float32")
+            times[name] = {"ms": (tk1 + tk2) / 2, "plain_ms": (tp1 + tp2) / 2, "bound_ms": bms,
+                           "bound_by": by, "library_ms": tl}
+            shape = f"S={S}" if name.startswith("warp") else f"G={DPT_G}"
+            print(f"  {name} B={B} {shape} {H}x{W}: kernel {times[name]['ms']:.4f} ms, plain "
+                  f"{times[name]['plain_ms']:.4f} ms, library "
+                  + ("none" if tl is None else f"{tl:.4f} ms")
+                  + f", bound {bms:.4f} ms ({by}) [{card}]")
+    del img, grids, got, want, preds, gout, pf, pf_ref, pb, pb_ref
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+def dpt_train_runs(dev, card, log):
+    """Phase 24 (b) and (c): train_dpt.main() with no --model (DPTTrainer)
+    and with --model rn_encoder_with_attention at the Options defaults
+    (640x192, B=12, bf16, synthetic data, one epoch of 8 steps and its
+    val()): finite losses, every module moved, the launches (attend3 none:
+    the attention encoder's 7x7 convs take the plain path); then the step
+    alone as phase 23 times it (ms, samples/s, peak memory, idle share) and
+    its top device operations. After the DPT's epoch, (e) on its
+    weights_0 (:func:`dpt_resume`). Returns the launches of the runs."""
+    import torch
+
+    from ssde_tpu_torch.data.pipeline import to_device
+    from ssde_tpu_torch.data.synthetic import make_synthetic_batch
+    from ssde_tpu_torch.scripts import train_dpt
+    from ssde_tpu_torch.train import trainer as trainer_mod
+
+    torch.backends.cudnn.allow_tf32 = True  # the training configuration
+    counters = _gru_counters()
+    total = dict.fromkeys(counters, 0)
+    batch = make_synthetic_batch(MONO_B, H, W, seed=SEED)
+    try:
+        for label, extra, cls_name, depth_files in DPT_TRAIN_RUNS:
+            cls = getattr(trainer_mod, cls_name)
+            argv = ["--synthetic_data", "--num_epochs", "1", "--mono_pretrained", "0",
+                    "--log_dir", log, "--model_name", label, *extra]
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with _Observed(cls) as obs:
+                trainer = train_dpt.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {k: fn.launches for k, fn in counters.items()}
+            for k, v in launched.items():
+                total[k] += v
+            steps, vals = len(obs.history), len(obs.vals)
+            want = {**dict.fromkeys(counters, 0), "warp_family_fwd": 2 * (steps + vals),
+                    "photometric_fwd": steps + vals, "photometric_bwd": steps}
+            still, stuck = _moved(obs, trainer)
+            opt = trainer.opt
+            print(f"dpt train {label}: main() {wall:.1f} s ({type(trainer).__name__}, "
+                  f"{opt.height}x{opt.width} B={opt.batch_size} {opt.compute_dtype}, frames "
+                  f"{opt.frame_ids}, scales {opt.scales}; build, {steps} steps, {vals} val(), "
+                  f"save): losses " + " ".join(f"{h['loss']:.5f}" for h in obs.history)
+                  + f"; launches {({k: v for k, v in launched.items() if v})}; "
+                  f"{len(obs.start)} trained parameters, "
+                  f"{sum(p.numel() for p in trainer.models.parameters()) / 1e6:.1f} M values "
+                  f"[{card}]")
+            if type(trainer) is not cls or (opt.batch_size, opt.height, opt.width,
+                                             opt.compute_dtype) != (MONO_B, H, W, "bfloat16"):
+                fail(f"dpt train {label}: {type(trainer).__name__} at {opt}")
+            if label == "dpt_gru" and (opt.model, opt.frame_ids, opt.scales) != (
+                    "dpt_gru", [0, -1, 1], [0]):
+                fail(f"dpt train: no --model gave {opt.model}, frames {opt.frame_ids}, "
+                     f"scales {opt.scales}")
+            if not steps or not all(np.isfinite(v) for h in obs.history for v in h.values()):
+                fail(f"dpt train {label}: {steps} steps, or a loss is not finite")
+            if launched != want:
+                fail(f"dpt train {label}: launches {launched}, expected {want}")
+            if still or stuck:
+                fail(f"dpt train {label}: modules that did not move {still}, "
+                     f"{len(stuck)} parameters with a gradient that did not move")
+            folder = os.path.join(log, label, "models", "weights_0")
+            files = sorted(os.listdir(folder))
+            need = sorted(["adam.pth", "pose.pth", "pose_encoder.pth"]
+                          + [f"{m}.pth" for m in depth_files])
+            print(f"dpt train {label}: {folder}: {files}")
+            if files != need:
+                fail(f"dpt train {label}: weights_0 holds {files}, expected {need}")
+            if label == "dpt_gru":  # (e), on the state that weights_0 holds
+                dpt_resume(dev, card, trainer, folder, argv)
+
+            # the step alone: chained steps on one batch on the card
+            models, state = trainer.models, trainer.state
+            dbatch = to_device(batch, dev)
+            rng = torch.Generator(dev).manual_seed(SEED)
+            step = lambda: trainer.step_fn(models, state, dbatch, rng)  # noqa: E731
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            k = 5
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            for _ in range(k):
+                losses = step()
+            end.record()
+            last = float(losses["loss"])
+            ms = start.elapsed_time(end) / k
+            per = {name: fn.launches / k for name, fn in counters.items() if fn.launches}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            busy, pwall, prof = _device_idle_share(step, IDLE_STEPS)
+            print(f"dpt train {label} step B={MONO_B} {H}x{W} bf16: {ms:.3f} ms, "
+                  f"{MONO_B * 1e3 / ms:.2f} samples/s (mean of {k} chained after 2 warm-up; "
+                  f"last loss {last:.5f}); launches a step {per}; peak memory {peak:.2f} GiB; "
+                  f"device busy {busy:.1f} ms over {IDLE_STEPS} profiled steps: idle share "
+                  f"{1 - busy / (IDLE_STEPS * ms):.1%} of {IDLE_STEPS} unprofiled steps, "
+                  f"{1 - busy / pwall:.1%} of the profiled wall ({pwall:.1f} ms) [{card}]")
+            if not np.isfinite(last) or per != {"warp_family_fwd": 2, "photometric_fwd": 1,
+                                                "photometric_bwd": 1}:
+                fail(f"dpt train {label} step: loss {last}, launches a step {per}")
+            table = prof.key_averages().table(sort_by="device_time_total", row_limit=25)
+            os.makedirs("chiprun_out", exist_ok=True)
+            with open(os.path.join("chiprun_out", f"dpt_profile_{label}.txt"), "w") as f:
+                f.write(f"{card}\n{table}\n")
+            print(f"  top device operations of the {label} step over {IDLE_STEPS} profiled "
+                  f"steps:")
+            for line in table.splitlines()[:12]:
+                print("   ", line[:160])
+            del trainer, models, state, dbatch, obs, prof
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return total
+
+
+def _dpt_step_run(label, batch, where, net, loss_dtype, select):
+    """One step of ``label``'s model (forward and backward, without Adam) at
+    64x128, B=2 on ``where``, the networks in ``net``, the geometry, warp and
+    loss in ``loss_dtype``; ``select`` replaces the automask's minimum.
+    Returns (losses, gradients by (module, name) as float64 on the CPU)."""
+    import torch
+
+    import ssde_tpu_torch.train.steps as steps
+    from ssde_tpu_torch.config import Options
+    from ssde_tpu_torch.data.pipeline import to_device
+    from ssde_tpu_torch.train import steps_dpt
+
+    h, w = DPT_CPU_HW
+    gen = torch.Generator().manual_seed(SEED)
+    if label == "dpt_gru":
+        opts = Options(height=h, width=w, batch_size=2, compute_dtype="float32",
+                       frame_ids=[0, -1, 1], scales=[0])
+        models, loss_fn = steps_dpt.build_dpt_models(opts, where, gen), steps_dpt.dpt_loss_fn
+        groups = ("dpt", "pose_encoder", "pose")
+    else:
+        opts = Options(height=h, width=w, batch_size=2, compute_dtype="float32")
+        models = steps.build_mono_models(opts, where, gen, attention_encoder=True)
+        loss_fn, groups = steps.mono_loss_fn, ("encoder", "depth", "pose_encoder", "pose")
+    for m in models.modules():
+        m.to(net)
+    inputs = steps.preprocess_train(to_device(batch, where), opts)
+    inputs = {k: v.to(net) if k.startswith("color_aug") else
+              v.to(loss_dtype) if v.is_floating_point() else v for k, v in inputs.items()}
+    models.train()
+    patched = {"min_reprojection": select or steps.min_reprojection,
+               "_full": lambda t: t.to(loss_dtype)}
+    plain = {k: getattr(steps, k) for k in patched}
+    try:
+        for k, v in patched.items():
+            setattr(steps, k, v)
+        _, losses, _ = loss_fn(models, inputs)
+        losses["loss"].backward()
+    finally:
+        for k, v in plain.items():
+            setattr(steps, k, v)
+    grads = {(g, k): p.grad.detach().cpu().double()
+             for g in groups for k, p in getattr(models, g).named_parameters()}
+    return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def dpt_card_vs_cpu(dev):
+    """Phase 24 (d): one step of each model at 64x128, B=2, card vs CPU and
+    each against an all-float64 CPU run, by phase 8's and 23 (c)'s recipe:
+    the networks in float64, the geometry, warp and loss in float32 (the
+    kernels on the card, their plain versions on the CPU), the automask
+    argmin of the float64 run. The networks run in float64 on both sides,
+    so no relu mask needs pinning (phase 23 pins those of its float32 fusion
+    module). Bounds: losses TOL_STEP_LOSS relative, each gradient
+    TOL_STEP_GRAD of its float64 max."""
+    import torch
+
+    from ssde_tpu_torch.data.synthetic import make_synthetic_batch
+
+    h, w = DPT_CPU_HW
+    batch = make_synthetic_batch(2, h, w, seed=SEED + 5)
+    f32, f64 = torch.float32, torch.float64
+    for label, *_ in DPT_TRAIN_RUNS:
+        selected, switches = [], {}
+
+        def pinned(name):
+            switches[name] = []
+            return _selection(selected, switches=switches[name])
+
+        t0 = time.perf_counter()
+        l64, g64 = _dpt_step_run(label, batch, "cpu", f64, f64, _selection(record=selected))
+        lg, gg = _dpt_step_run(label, batch, dev, f64, f32, pinned("card"))
+        lc, gc = _dpt_step_run(label, batch, "cpu", f64, f32, pinned("CPU"))
+        secs = time.perf_counter() - t0
+        lrel = {"card vs CPU": max(abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc),
+                "card vs float64": max(abs(lg[k] - l64[k]) / abs(l64[k]) for k in l64),
+                "CPU vs float64": max(abs(lc[k] - l64[k]) / abs(l64[k]) for k in l64)}
+        ok = max(lrel.values()) <= TOL_STEP_LOSS and all(np.isfinite(v) for v in lg.values())
+        rows = []
+        for grp in dict.fromkeys(k[0] for k in g64):
+            keys = [k for k in g64 if k[0] == grp]
+            e = {n: max(_rel(a[k], g64[k] if n != "card vs CPU" else gc[k]) for k in keys)
+                 for n, a in (("card vs CPU", gg), ("card vs float64", gg),
+                              ("CPU vs float64", gc))}
+            ok = ok and max(e.values()) <= TOL_STEP_GRAD
+            rows.append(f"{grp} " + "/".join(f"{v:.2e}" for v in e.values()))
+        print(f"dpt card vs CPU {label}: one step at {h}x{w} B=2 (networks float64, loss "
+              f"float32; {secs:.1f} s): loss card {lg['loss']:.8f}, CPU {lc['loss']:.8f}, "
+              f"float64 {l64['loss']:.8f}; worst rel " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in lrel.items()) + f" (bound {TOL_STEP_LOSS}); "
+              f"automask switches " + ", ".join(f"{sum(v)} ({k})" for k, v in switches.items())
+              + f"; gradients card vs CPU / card vs float64 / CPU vs float64 of max (bound "
+              f"{TOL_STEP_GRAD}): " + "; ".join(rows))
+        if not ok:
+            fail(f"dpt card vs CPU {label}: the card and the CPU disagree")
+
+
+def dpt_resume(dev, card, trainer, folder, argv):
+    """Phase 24 (e): a DPTTrainer built on phase 24's weights_0 with the
+    default --models_to_load (which does not name dpt) against the saved
+    one: every module and Adam's state bit-identical, the step count too;
+    then the attention maps of a forward at 640x192 (eval mode, float32):
+    each sums to 1 over the keys, and get_mean_attention_map gives
+    (B, 12, 40)."""
+    import torch
+
+    from ssde_tpu_torch.config import MonodepthOptions
+    from ssde_tpu_torch.models.dpt import get_mean_attention_map
+    from ssde_tpu_torch.scripts.train_dpt import build_trainer
+
+    t0 = time.perf_counter()
+    reloaded = build_trainer(MonodepthOptions().parse(argv + ["--load_weights_folder", folder]))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    a, b = _trainer_tensors(trainer), _trainer_tensors(reloaded)
+    for i, (sa, sb) in enumerate(zip(trainer.state.optimizer.state.values(),
+                                     reloaded.state.optimizer.state.values())):
+        a.update({f"adam.{i}.{k}": v.detach().cpu() for k, v in sa.items()})
+        b.update({f"adam.{i}.{k}": v.detach().cpu() for k, v in sb.items()})
+    differ = [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+    steps = (trainer.state.step, reloaded.state.step, _adam_steps(trainer), _adam_steps(reloaded))
+    print(f"dpt resume: {type(reloaded).__name__} built on {folder} with --models_to_load "
+          f"{reloaded.opt.models_to_load} in {load_s:.1f} s (build and load) [{card}]: "
+          f"{len(a) - len(differ)} of {len(a)} tensors bit-identical; Adam steps {steps[0]} / "
+          f"{steps[1]} (per parameter {steps[2]} / {steps[3]})")
+    if differ or a.keys() != b.keys() or steps[0] != steps[1] or steps[2] != steps[3] \
+            or not any(k.startswith("0.") for k in a):
+        fail(f"dpt resume: the reloaded trainer differs: {differ[:5]}, steps {steps}")
+    del reloaded
+    torch.cuda.empty_cache()
+    dpt = trainer.models.dpt.eval()
+    x = torch.rand(2, 3, H, W, device=dev, generator=torch.Generator(dev).manual_seed(SEED))
+    with torch.no_grad():
+        out = dpt(x, capture_attention=True)
+    grid = (H // 16, W // 16)
+    n = grid[0] * grid[1] + 1
+    sums = {k: (v.sum(-1) - 1).abs().max().item() for k, v in out["attention"].items()}
+    maps = {t: tuple(get_mean_attention_map(out["attention"]["attn_4"], t, grid).shape)
+            for t in (1, -1)}
+    shapes = {k: tuple(v.shape) for k, v in out["attention"].items()}
+    print(f"dpt attention at {H}x{W}, B=2, float32: maps {shapes}, worst |sum over keys - 1| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sums.items())
+          + f"; get_mean_attention_map {maps}; disp/0 {tuple(out['disp/0'].shape)} in "
+          f"[{out['disp/0'].min().item():.4f}, {out['disp/0'].max().item():.4f}]")
+    if any(s != (2, 12, n, n) for s in shapes.values()) or max(sums.values()) > 1e-5 \
+            or set(maps.values()) != {(2,) + grid}:
+        fail("dpt attention: the maps do not have their shape or do not sum to 1")
+    dpt.train()
+
+
+def dpt_training(dev, card):
+    """Phase 24: train_dpt for every model it did not train before. (a) #5,
+    #6 and #7 at the DPT step's shapes; (b)-(c) train_dpt.main() with no
+    --model (the DPT) and with rn_encoder_with_attention; (d) card vs CPU;
+    (e) save, reload and resume, and the attention maps. Returns (launches
+    of the main path, (b)-(c), by kernel; the worst errors and the times of
+    (a))."""
+    import torch
+
+    phase0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs, times = dpt_kernels(dev, card)
+    log = tempfile.mkdtemp(prefix="ssde_dpt_log_")
+    try:
+        total = dpt_train_runs(dev, card, log)
+        dpt_card_vs_cpu(dev)
+    finally:
+        shutil.rmtree(log, ignore_errors=True)
+    print(f"dpt: phase 24 took {time.perf_counter() - phase0:.1f} s; launches of its main path "
+          f"{({k: v for k, v in total.items() if v})} [{card}]")
     return total, errs, times
 
 

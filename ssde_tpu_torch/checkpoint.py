@@ -10,13 +10,15 @@ the reference's per-module ``.pth`` folder.
 ``convert_fusion_v2`` (:361): conv kernels HWIO -> OIHW, ``h0`` and ``c0``
 (1, H, W, C) -> (1, C, H, W), BatchNorm
 ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/``running_mean``/
-``running_var``. Trees are nested dicts of numpy arrays; nothing here
-imports flax.
+``running_var``. ``dpt_from_flax`` and ``attention_encoder_from_flax``
+have no JAX converter to invert: the port's modules carry the JAX trees'
+names, and they rename and transpose. Trees are nested dicts of numpy
+arrays; nothing here imports flax.
 
 The folder layout is the reference's (``ssde_tpu/checkpoint.py:3-8``,
 reference trainer.py:711-763): ``weights_<epoch>/`` holds one ``.pth``
 state dict per module (``encoder``, ``depth``, ``pose_encoder``, ``pose``,
-``gru``, ``head``, ``fusion``), ``encoder.pth`` also carries the
+``gru``, ``head``, ``fusion``, ``dpt``), ``encoder.pth`` also carries the
 ``height``, ``width`` and ``use_stereo`` entries, and ``adam.pth`` the
 optimizer's state dict.
 :func:`save_folder` writes it, :func:`load_folder` reads it; one module's
@@ -117,14 +119,15 @@ def _attention_conv(sd: StateDict, prefix: str, p: Mapping) -> None:
     """Inverse of ``_convert_attention_conv`` (:279-296): the q/k/v 1x1
     kernels and biases, and the relative embeddings back to the reference's
     shapes, (C/2, k) -> (C/2, 1, 1, k, 1) and (C/2, 1, 1, 1, k), a shared
-    (k,) -> (1, 1, 1, k, 1) and (1, 1, 1, 1, k)."""
+    (k,) -> (1, 1, 1, k, 1) and (1, 1, 1, 1, k). ``prefix`` is '' or ends
+    in a dot."""
     for conv in ("key_conv", "query_conv", "value_conv"):
-        sd[f"{prefix}.{conv}.weight"] = _oihw(p[conv]["kernel"])
+        sd[f"{prefix}{conv}.weight"] = _oihw(p[conv]["kernel"])
         if "bias" in p[conv]:
-            sd[f"{prefix}.{conv}.bias"] = _t(p[conv]["bias"])
+            sd[f"{prefix}{conv}.bias"] = _t(p[conv]["bias"])
     for rel, shape in (("rel_h", (1, 1, -1, 1)), ("rel_w", (1, 1, 1, -1))):
         r = np.asarray(p[rel])
-        sd[f"{prefix}.{rel}"] = _t(r.reshape((r.shape[0] if r.ndim == 2 else 1,) + shape))
+        sd[f"{prefix}{rel}"] = _t(r.reshape((r.shape[0] if r.ndim == 2 else 1,) + shape))
 
 
 def _conv(sd: StateDict, prefix: str, p: Mapping) -> None:
@@ -139,7 +142,7 @@ def _residual_units(sd: StateDict, prefix: str, p: Mapping) -> None:
     for rcu in sorted(k for k in p if k.startswith("resConfUnit")):
         for i in (1, 2):
             if f"atten{i}" in p[rcu]:
-                _attention_conv(sd, f"{prefix}{rcu}.atten{i}", p[rcu][f"atten{i}"])
+                _attention_conv(sd, f"{prefix}{rcu}.atten{i}.", p[rcu][f"atten{i}"])
             else:
                 _conv(sd, f"{prefix}{rcu}.conv{i}", p[rcu][f"conv{i}"])
 
@@ -211,6 +214,78 @@ def fusion_from_flax(params: Mapping) -> StateDict:
     return sd
 
 
+# flax submodule names whose port counterparts sit elsewhere: a Bottleneck's
+# shortcut is the torchvision-style ``downsample`` Sequential
+_RENAMES = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+
+
+def _flax_tree(sd: StateDict, prefix: str, params: Mapping, stats: Mapping) -> None:
+    """A module tree whose port counterpart carries the flax names, under
+    ``prefix``: a conv or Dense ``kernel`` HWIO -> OIHW or (in, out) ->
+    (out, in), ``bias`` as it is, a LayerNorm's ``scale`` -> ``weight``, a
+    BatchNorm (``<name>/bn``) through :func:`_bn`, an AttentionConv (a node
+    with ``rel_h``) through :func:`_attention_conv`, any other leaf (the
+    DPT's ``cls_token``, ``pos_embed``) as it is."""
+    if "rel_h" in params:
+        _attention_conv(sd, prefix, params)
+        return
+    for name in sorted(params):
+        p, key = params[name], f"{prefix}{_RENAMES.get(name, name)}"
+        if not isinstance(p, Mapping):
+            a = np.asarray(p)
+            if name == "kernel":
+                sd[f"{prefix}weight"] = _oihw(a) if a.ndim == 4 else _t(a.T)
+            else:
+                sd[f"{prefix}weight" if name == "scale" else key] = _t(a)
+        elif set(p) == {"bn"}:
+            _bn(sd, key, p["bn"], stats[name]["bn"])
+        else:
+            _flax_tree(sd, f"{key}.", p, stats.get(name, {}))
+
+
+def dpt_from_flax(params: Mapping, batch_stats: Mapping) -> StateDict:
+    """``ssde_tpu.models.dpt.DPTDepthModel`` (params, batch_stats) ->
+    ``DPTDepthModel`` state_dict. The JAX package has no converter for this
+    model, nor the reference a ``.pth`` (its ``dpt`` package is not
+    vendored), so the keys are the JAX tree's names and this is a rename
+    plus transposes (:func:`_flax_tree`)."""
+    sd: StateDict = {}
+    _flax_tree(sd, "", params, batch_stats)
+    return sd
+
+
+def attention_encoder_from_flax(params: Mapping, batch_stats: Mapping) -> StateDict:
+    """``ssde_tpu.models`` ``ResnetEncoderAttention`` (params, batch_stats)
+    -> its port's state_dict: the ResNet part through
+    :func:`encoder_from_flax`, ``atten1`` .. ``atten4`` through
+    :func:`_attention_conv`. An ``AttentionResNet`` tree, or a bare
+    ``AttentionConv``'s (no ``encoder`` entry), goes through
+    :func:`_flax_tree`, whose names the port's modules carry. The JAX
+    package has no converter for these."""
+    if "encoder" not in params:
+        sd: StateDict = {}
+        _flax_tree(sd, "", params, batch_stats)
+        return sd
+    sd = encoder_from_flax(params["encoder"], batch_stats["encoder"])
+    for name in sorted(params):
+        if name.startswith("atten"):
+            _attention_conv(sd, f"{name}.", params[name])
+        elif name != "encoder":
+            raise KeyError(f"unexpected attention encoder tree entry {name!r}")
+    return sd
+
+
+def load_resnet_part(encoder: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> None:
+    """Load a plain ResNet encoder's state_dict (a Monodepth2 ``encoder.pth``)
+    into ``ResnetEncoderAttention``: every ``encoder.*`` key strictly, the
+    attention convs left as they are."""
+    res = encoder.load_state_dict(sd, strict=False)
+    bad = [k for k in res.missing_keys if not k.startswith("atten")]
+    if bad or res.unexpected_keys:
+        raise KeyError(f"encoder state_dict mismatch: missing {bad}, "
+                       f"unexpected {res.unexpected_keys}")
+
+
 def load_depth(decoder: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> None:
     """Strict load, except that the dispconv heads may be absent."""
     res = decoder.load_state_dict(sd, strict=False)
@@ -224,7 +299,10 @@ def load_depth(decoder: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> None
 
 # the module files of a folder, in the reference's order, and the entries
 # that encoder.pth carries beside its weights
-MODULE_NAMES = ("encoder", "depth", "pose_encoder", "pose", "gru", "head", "fusion")
+MODULE_NAMES = ("encoder", "depth", "pose_encoder", "pose", "gru", "head", "fusion", "dpt")
+# the module files of a Monodepth2 warm start (``--mono_pretrained``): those
+# that ``ssde_tpu/checkpoint.py`` ``load_monodepth2_checkpoint`` (:243-276) reads
+WARM_START_NAMES = ("encoder", "depth", "pose_encoder", "pose", "gru", "head", "fusion")
 ENCODER_META = ("height", "width", "use_stereo")
 
 

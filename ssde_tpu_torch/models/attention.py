@@ -60,10 +60,14 @@ class AttentionConv(nn.Module):
     """Windowed per-channel attention, stride 1, ``(k - 1) / 2`` padding."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 use_bias: bool = False, shared_rel: bool = False, device=None):
+                 use_bias: bool = False, shared_rel: bool = False, groups: int = 1,
+                 device=None):
         super().__init__()
         k, C = kernel_size, out_channels
         self.kernel_size, self.out_channels, self.shared_rel = k, C, shared_rel
+        # bookkeeping only, as in the JAX module (attention.py:10-12): the
+        # logits are per channel whatever the groups
+        self.groups = groups
         n = 1 if shared_rel else C // 2
         self.rel_h = nn.Parameter(torch.empty(n, 1, 1, k, 1, device=device))
         self.rel_w = nn.Parameter(torch.empty(n, 1, 1, 1, k, device=device))

@@ -181,8 +181,8 @@ class ResnetEncoder(nn.Module):
 
     def init_weights_(self, generator: torch.Generator) -> None:
         """torchvision's init: convs kaiming-normal (fan_out, relu), BN
-        weight 1 / bias 0, running statistics 0 / 1."""
-        for m in self.modules():
+        weight 1 / bias 0, running statistics 0 / 1; the trunk's modules only."""
+        for m in self.encoder.modules():
             if isinstance(m, nn.Conv2d):
                 fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
                 std = math.sqrt(2.0 / fan_out)

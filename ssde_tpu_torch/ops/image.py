@@ -34,7 +34,10 @@ def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False) -> tor
     (i + 0.5) * in/out - 0.5 clamped at 0 (torch ``F.interpolate``'s
     convention); ``align_corners=True`` takes i * (in-1) / (out-1). The
     coordinates and the interpolation are float32, or float64 for a float64
-    ``x`` (a reference run)."""
+    ``x`` (a reference run). The rows and columns are gathered with
+    ``index_select``, whose backward is an ``index_add``: the backward of an
+    advanced-index gather sorts its indices first, and on an NVIDIA H100 that
+    took 63 % of the DPT train step's device time (``PERF.md`` §6, PR 18)."""
     B, C, H, W = x.shape
     out_h, out_w = out_hw
     dtype = x.dtype
@@ -54,7 +57,7 @@ def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False) -> tor
     y1, x1 = torch.clamp(y0 + 1, max=H - 1), torch.clamp(x0 + 1, max=W - 1)
     wy = (ys - y0.to(x.dtype))[None, None, :, None]
     wx = (xs - x0.to(x.dtype))[None, None, None, :]
-    rows0, rows1 = x[:, :, y0], x[:, :, y1]
-    top = rows0[..., x0] * (1 - wx) + rows0[..., x1] * wx
-    bot = rows1[..., x0] * (1 - wx) + rows1[..., x1] * wx
+    rows0, rows1 = x.index_select(2, y0), x.index_select(2, y1)
+    top = rows0.index_select(3, x0) * (1 - wx) + rows0.index_select(3, x1) * wx
+    bot = rows1.index_select(3, x0) * (1 - wx) + rows1.index_select(3, x1) * wx
     return (top * (1 - wy) + bot * wy).to(dtype)

@@ -26,7 +26,7 @@ import torch
 
 from ..config import Options
 from ..data.transforms import preprocess_batch
-from ..models import DepthDecoder, PoseDecoder, ResnetEncoder
+from ..models import DepthDecoder, PoseDecoder, ResnetEncoder, ResnetEncoderAttention
 from ..models.common import init_weights_
 from ..ops.geometry import disp_to_depth, reproject_coords, transformation_from_parameters
 from ..ops.image import resize_bilinear
@@ -90,14 +90,17 @@ class MonoModels:
 
 
 def build_mono_models(opts: Options, device="cuda",
-                      generator: Optional[torch.Generator] = None) -> MonoModels:
-    """ResNet depth encoder + DepthDecoder, and a separate ResNet pose
-    encoder on stacked pairs (6 input channels) + PoseDecoder, float32
-    parameters. With a ``generator`` the weights are drawn from it on the
-    CPU (torchvision's init for the encoders, torch's default for the
-    decoders) before the move to ``device``."""
+                      generator: Optional[torch.Generator] = None,
+                      attention_encoder: bool = False) -> MonoModels:
+    """ResNet depth encoder (``ResnetEncoderAttention`` with
+    ``attention_encoder``, ``--model rn_encoder_with_attention``) +
+    DepthDecoder, and a separate ResNet pose encoder on stacked pairs (6
+    input channels) + PoseDecoder, float32 parameters. With a ``generator``
+    the weights are drawn from it on the CPU (torchvision's init for the
+    encoders, the reference's for the attention convs, torch's default for
+    the decoders) before the move to ``device``."""
     check_supported(opts)
-    encoder = ResnetEncoder(opts.num_layers)
+    encoder = (ResnetEncoderAttention if attention_encoder else ResnetEncoder)(opts.num_layers)
     depth = DepthDecoder(encoder.num_ch_enc, scales=tuple(opts.scales))
     pose_encoder = ResnetEncoder(opts.num_layers, num_input_images=2)
     pose = PoseDecoder(pose_encoder.num_ch_enc, num_input_features=1,

@@ -1,6 +1,7 @@
-"""The mono and fusion trainers (counterpart of ``ssde_tpu/train/trainer.py``
-``TrainerBase`` and ``Trainer``, :55-392, and the fusion trainers,
-:403-458).
+"""The mono, attention-encoder, fusion and DPT trainers (counterpart of
+``ssde_tpu/train/trainer.py`` ``TrainerBase`` and ``Trainer``, :55-392,
+``AttentionTrainer``, :394-400, the fusion trainers, :403-458, and
+``DPTTrainer``, :460-494).
 
 An epoch loop around :func:`ssde_tpu_torch.train.steps.train_step`: the
 loader decodes KITTI items from ``--data_path`` (``--dataset`` kitti,
@@ -25,12 +26,18 @@ TensorBoard writer or ``device_prefetch`` yet.
 The port's warp is exact, so it reports no ``warp/band_violation`` and the
 JAX trainer's ``_check_band_violation`` guard has nothing to check.
 
-The fusion trainers (``FusionTrainer``, ``FusionV3Trainer``,
+``AttentionTrainer`` is the mono trainer with ``ResnetEncoderAttention``
+as the depth encoder; its ``--mono_pretrained`` warm start loads the
+ResNet part of a Monodepth2 ``encoder.pth`` and leaves the attention convs
+at their init. The fusion trainers (``FusionTrainer``, ``FusionV3Trainer``,
 ``FusionScaleLoopTrainer``) run :func:`ssde_tpu_torch.train.steps_fusion.train_step`
-on frames [0, -1, -2, 1] and save ``fusion.pth`` beside the mono modules.
+on frames [0, -1, -2, 1] and save ``fusion.pth`` beside the mono modules;
+``DPTTrainer`` runs :func:`ssde_tpu_torch.train.steps_dpt.train_step` on
+frames [0, -1, 1] at scale 0 and saves ``dpt.pth`` beside the pose modules.
 Resuming from a folder with the default ``--models_to_load`` restores
-``fusion.pth`` too (the default list, a copy of the JAX package's, does
-not name it); a list given that leaves ``fusion`` out leaves it out.
+``fusion.pth`` or ``dpt.pth`` too (the default list, a copy of the JAX
+package's, names neither); a list given that leaves them out leaves them
+out.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from ..data.splits import readlines, split_file
 from ..data.synthetic import SyntheticKittiDataset
 from ..data.transforms import preprocess_batch
 from ..eval.depth import _resize_bilinear_np, compute_errors
-from . import steps_fusion
+from . import steps_dpt, steps_fusion
 from .state import TrainState
 from .steps import build_mono_models, check_supported, mono_loss_fn, train_step
 
@@ -183,6 +190,9 @@ class TrainerBase:
     step_fn = staticmethod(train_step)
     loss_fn = staticmethod(mono_loss_fn)
     check_supported = staticmethod(check_supported)
+    # modules of the subclass that the default --models_to_load does not name
+    # but a resume from its own weights_N/ restores (_models_to_load)
+    own_modules: tuple = ()
 
     def __init__(self, options: Options, device=None, seed: int = 0):
         self.opt = options
@@ -279,12 +289,18 @@ class TrainerBase:
         self.models = self._build_models()
         if opt.mono_pretrained and opt.load_weights_folder is None \
                 and os.path.isdir(MONO_PRETRAINED):
-            _, loaded = checkpoint.load_folder(MONO_PRETRAINED, self.models)
-            print(f"---> Load monodepth2 weights: {loaded} from {MONO_PRETRAINED}")
+            self._warm_start()
         self.state = TrainState(self.models.parameters(), opt.learning_rate,
                                 self._scheduler_step_size(), max(1, len(self.train_loader)))
         if opt.load_weights_folder is not None:
             self.load_model()
+
+    def _warm_start(self) -> None:
+        """``--mono_pretrained``: the module files of ``models/mono_640x192``
+        that the bundle has (``checkpoint.WARM_START_NAMES``), strictly."""
+        _, loaded = checkpoint.load_folder(MONO_PRETRAINED, self.models,
+                                           checkpoint.WARM_START_NAMES)
+        print(f"---> Load monodepth2 weights: {loaded} from {MONO_PRETRAINED}")
 
     # ------------------------------------------------------------ train
     def train(self):
@@ -391,12 +407,42 @@ class TrainerBase:
             self.state.step = max(steps, default=0)
 
     def _models_to_load(self) -> List[str]:
-        """The modules :meth:`load_model` reads: ``--models_to_load``."""
-        return list(self.opt.models_to_load)
+        """The modules :meth:`load_model` reads: ``--models_to_load``, and
+        :attr:`own_modules` when that is the default list, which does not
+        name them: a run resumed from its own ``weights_N/`` restores them
+        with the rest (the JAX trainer leaves them fresh, ``ROADMAP.md``
+        Queue 3). A list given that leaves them out leaves them out."""
+        names = list(self.opt.models_to_load)
+        return names + list(self.own_modules) if names == Options().models_to_load else names
 
 
 class Trainer(TrainerBase):
     """Plain monodepth2-style training."""
+
+
+class AttentionTrainer(Trainer):
+    """``--model rn_encoder_with_attention``: the mono step with
+    ``ResnetEncoderAttention`` as the depth encoder
+    (``ssde_tpu/train/trainer.py:394-400``)."""
+
+    def _build_models(self):
+        return build_mono_models(self.opt, self.device,
+                                 torch.Generator().manual_seed(self.seed),
+                                 attention_encoder=True)
+
+    def _warm_start(self) -> None:
+        """A Monodepth2 ``encoder.pth`` has no ``atten*`` keys: its ResNet part
+        is loaded (strictly) and the attention convs keep their init; the
+        other module files as :meth:`TrainerBase._warm_start` loads them.
+        (The JAX trainer puts the plain ResNet tree in the attention
+        encoder's place, and its first step fails: ``ROADMAP.md`` Queue 3.)"""
+        names = [n for n in checkpoint.WARM_START_NAMES if n != "encoder"]
+        _, loaded = checkpoint.load_folder(MONO_PRETRAINED, self.models, names)
+        path = os.path.join(MONO_PRETRAINED, "encoder.pth")
+        if os.path.exists(path):
+            checkpoint.load_resnet_part(self.models.encoder, checkpoint.read_module(path)[0])
+            loaded.insert(0, "encoder (its ResNet; atten1..4 left at their init)")
+        print(f"---> Load monodepth2 weights: {loaded} from {MONO_PRETRAINED}")
 
 
 class _FusionTrainerBase(TrainerBase):
@@ -405,6 +451,7 @@ class _FusionTrainerBase(TrainerBase):
 
     step_fn = staticmethod(steps_fusion.train_step)
     loss_fn = staticmethod(steps_fusion.fusion_loss_fn)
+    own_modules = ("fusion",)
 
     def __init__(self, options: Options, device=None, seed: int = 0):
         # the reference trainer forces the 3-frame context (trainer.py:55)
@@ -417,13 +464,6 @@ class _FusionTrainerBase(TrainerBase):
     def _build_models(self):
         return steps_fusion.build_fusion_models(self.opt, self.fusion_variant, self.device,
                                                 torch.Generator().manual_seed(self.seed))
-
-    def _models_to_load(self) -> List[str]:
-        """``--models_to_load``, and ``fusion`` when that is the default list,
-        which does not name it: a run resumed from its own ``weights_N/``
-        restores its fusion module with the rest."""
-        names = super()._models_to_load()
-        return names + ["fusion"] if names == Options().models_to_load else names
 
 
 class FusionTrainer(_FusionTrainerBase):
@@ -455,3 +495,23 @@ class FusionScaleLoopTrainer(_FusionTrainerBase):
     trainer.py)."""
 
     fusion_variant = "scale_loop"
+
+
+class DPTTrainer(TrainerBase):
+    """``--model dpt_gru``: the DPT-hybrid depth model
+    (``ssde_tpu/train/trainer.py:460-494``). Frames forced to [0, -1, 1] and
+    scales to [0], as the reference forces them (trainer_dpt.py:63): the
+    DPT gives one full-resolution disparity, so the loss runs at scale 0."""
+
+    step_fn = staticmethod(steps_dpt.train_step)
+    loss_fn = staticmethod(steps_dpt.dpt_loss_fn)
+    own_modules = ("dpt",)
+
+    def __init__(self, options: Options, device=None, seed: int = 0):
+        options.frame_ids = [0, -1, 1]
+        options.scales = [0]
+        super().__init__(options, device, seed)
+
+    def _build_models(self):
+        return steps_dpt.build_dpt_models(self.opt, self.device,
+                                          torch.Generator().manual_seed(self.seed))

@@ -20,8 +20,8 @@ the JAX package).
   exists, else ``train_files.txt`` (a split list under ``SSDE_SPLITS_DIR``
   in a temporary directory, on the miniature raw tree of
   tests/test_kitti_tree.py); ``FusionTrainer`` reads ``train_files.txt``.
-* ``train_dpt --model rn_fusion`` builds ``FusionV3Trainer``; the other
-  models not ported yet still raise.
+* ``train_dpt --model rn_fusion`` builds ``FusionV3Trainer``, and the
+  other models their trainers (``AttentionTrainer``, ``DPTTrainer``).
 * The pyramid trains no ``dispconv_*`` head; v3 trains them.
 * Both scripts raise without a card unless ``--no_cuda``.
 """
@@ -35,8 +35,8 @@ import torch
 from ssde_tpu_torch.config import MonodepthOptions, Options
 from ssde_tpu_torch.scripts import train_dpt, train_fusion, train_fusion_v3
 from ssde_tpu_torch.train import steps_fusion
-from ssde_tpu_torch.train.trainer import (FusionScaleLoopTrainer, FusionTrainer,
-                                          FusionV3Trainer, device_batch)
+from ssde_tpu_torch.train.trainer import (AttentionTrainer, DPTTrainer, FusionScaleLoopTrainer,
+                                          FusionTrainer, FusionV3Trainer, device_batch)
 from test_kitti_tree import SCENE, kitti_tree  # noqa: F401
 
 H, W, B = 32, 64, 2
@@ -176,11 +176,9 @@ def test_train_files(kitti_tree, tmp_path, monkeypatch, cls, seq):  # noqa: F811
 @pytest.mark.parametrize("model", ["rn_fusion", "rn_encoder_with_attention", "dpt_gru"])
 def test_train_dpt_models(model, tmp_path):
     opts = MonodepthOptions().parse(_argv(tmp_path, "--model", model))
-    if model == "rn_fusion":
-        assert type(train_dpt.build_trainer(opts)) is FusionV3Trainer
-    else:
-        with pytest.raises(NotImplementedError, match="slice"):
-            train_dpt.build_trainer(opts)
+    want = {"rn_fusion": FusionV3Trainer, "rn_encoder_with_attention": AttentionTrainer,
+            "dpt_gru": DPTTrainer}[model]
+    assert type(train_dpt.build_trainer(opts)) is want
 
 
 @pytest.mark.parametrize("variant", ["pyramid", "v3"])

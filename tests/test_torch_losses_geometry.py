@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ssde_tpu.ops import geometry as jg
@@ -92,6 +93,33 @@ def test_resize_bilinear(rng, hw, out, align_corners):
     want = ji.resize_bilinear(jnp.asarray(x), out, align_corners)
     assert got.shape == (2, 3) + out
     _close(_nhwc(got), want, 1e-6)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("hw,out", [((6, 10), (24, 40)), ((24, 24), (4, 6)), ((1, 4), (3, 8))])
+def test_resize_bilinear_gradient(rng, hw, out, align_corners):
+    """The backward (an index_add of the index_select gathers) against
+    jax.grad of the JAX resize, float64 (its float32 casts read as float64),
+    within 1e-12 of the largest; rows no output reads get exactly 0."""
+    x = rng.rand(2, *hw, 3)
+    r = rng.randn(2, *out, 3)
+    xt = _nchw(x).requires_grad_()
+    (image.resize_bilinear(xt, out, align_corners) * _nchw(r)).sum().backward()
+
+    class F64:
+        float32 = jnp.float64
+
+        def __getattr__(self, name):
+            return getattr(jnp, name)
+
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        mp.setattr(ji, "jnp", F64())
+        want = np.asarray(jax.grad(lambda a: jnp.sum(ji.resize_bilinear(a, out, align_corners)
+                                                     * r))(jnp.asarray(x)))
+    got = _nhwc(xt.grad)
+    assert xt.grad.dtype == torch.float64
+    np.testing.assert_allclose(got, want, atol=1e-12 * np.abs(want).max(), rtol=0)
+    assert np.all(got[want == 0] == 0)
 
 
 @pytest.mark.parametrize("hw", [(5, 7), (1, 4), (3, 1), (1, 1)])

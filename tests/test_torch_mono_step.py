@@ -248,15 +248,13 @@ def test_train_writes_weights_0(tmp_path):
 
 @pytest.mark.parametrize("model", ["rn_encoder_with_attention", "rn_fusion", "dpt_gru"])
 def test_other_models_are_not_ported(model, tmp_path):
-    """The models train_dpt does not port yet raise naming their slice;
-    rn_fusion, ported since, builds the Fusion_v3 trainer."""
+    """train_dpt's other models, all ported since: each builds its trainer,
+    none raises NotImplementedError."""
     opts = Options(model=model, synthetic_data=True, height=32, width=64, batch_size=2,
                    log_dir=str(tmp_path))
-    if model == "rn_fusion":
-        assert type(train_dpt.build_trainer(opts, "cpu")).__name__ == "FusionV3Trainer"
-        return
-    with pytest.raises(NotImplementedError, match="slice"):
-        train_dpt.build_trainer(opts, "cpu")
+    want = {"rn_encoder_with_attention": "AttentionTrainer", "rn_fusion": "FusionV3Trainer",
+            "dpt_gru": "DPTTrainer"}[model]
+    assert type(train_dpt.build_trainer(opts, "cpu")).__name__ == want
 
 
 @pytest.mark.parametrize("flag,value,name", [

@@ -211,6 +211,16 @@ _NO_JAX = textwrap.dedent("""
     batch = to_device(next(iter(trainer.train_loader)), "cpu")
     assert float(train_step(trainer.models, trainer.state, batch)["loss"]) > 0
 
+    # the DPT trainer (train_dpt's default --model) and one step of it
+    import ssde_tpu_torch.train.steps_dpt as steps_dpt
+    opt = Options(synthetic_data=True, height=64, width=128, batch_size=2,
+                  compute_dtype="float32", num_workers=1, mono_pretrained=0)
+    trainer = build_trainer(opt, "cpu")
+    assert type(trainer).__name__ == "DPTTrainer" and trainer.device.type == "cpu"
+    batch = to_device(next(iter(trainer.train_loader)), "cpu")
+    assert float(steps_dpt.train_step(trainer.models, trainer.state, batch)["loss"]) > 0
+    del trainer
+
     # the GRU training slice: its entry point's trainer and one sequence step
     import ssde_tpu_torch.train.steps_gru as steps_gru
     import ssde_tpu_torch.train.trainer_gru  # noqa: F401
