@@ -175,6 +175,25 @@ Phases, each fatal on failure:
              bit-identical, Adam's step count included, and the attention
              maps of a forward at 640x192 summing to 1, the mean map
              (B, 12, 40)
+ 25. options     the Monodepth2 training options of the mono step: (a)
+             #7 on the stereo source's grids (S = 4, B=12, 640x192) and at
+             S = 1 on the --v1_multiscale sources (320x96, 160x48, 80x24),
+             and #5/#6 at the MS step's G = 180 and at --v1_multiscale's
+             G = 48 at those sizes, against their plain versions (phase 6's
+             tolerances), timed beside their bounds; (b) train_dpt.main()
+             --model monodepth2 with --use_stereo (MS, frames 0 -1 1) and
+             --use_stereo --frame_ids 0 (S, no pose network) at the Options
+             defaults (B=12, bf16, synthetic data, an epoch of 8 steps and
+             its val()): finite losses, every module moved, the launches
+             (warp 3 and 1 a step), weights_0; then the step's ms,
+             samples/s, peak memory, idle share and top device operations;
+             (c) one step at full width of posecnn, shared, --pose_model_input
+             all, --predictive_mask --disable_automasking, --v1_multiscale
+             and --no_ssim --avg_reprojection: the launches each states,
+             finite losses, ms and peak memory; (d) one step of each of the
+             eight at 64x128, B=2, card vs CPU and each against float64
+             (networks float64, the loss float32, the automask argmin of the
+             float64 run)
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, each with its launches on the main path (for
@@ -191,8 +210,11 @@ and its times for one step of each variant at B=12 bf16 under
 ``fusion_*`` of attend3_bwd; phase 24's, train_dpt's DPT and
 attention-encoder runs, is added to the warp's and the photometric
 kernels' counts and given alone as ``dpt_train_launches``, with their
-worst errors and times at the DPT step's shapes under ``dpt_*``), its
-time, its plain
+worst errors and times at the DPT step's shapes under ``dpt_*``; phase
+25's, train_dpt's MS and S runs, is added to the same counts and given
+alone as ``options_train_launches``, with their worst errors and times at
+the new shapes under ``options_b12_*`` and the two steps' ms under
+``options_*_step_ms``), its time, its plain
 version's (conv3x3_fwd: float32 serving at B=1, and under bf16_b8_* and
 f32_b8_* its bf16 and float32 bodies at a B=8 frame-step; conv3x3_dx and
 conv3x3_dw: bf16, and float32 under f32_b8_*; attend3_fwd and attend3_bwd:
@@ -553,6 +575,15 @@ def main() -> None:
         kernels[name]["dpt_train_launches"] = dpt_count[name]
         kernels[name]["dpt_max_abs_err"] = dpt_errs[name]
         kernels[name].update({f"dpt_b12_{k}": v for k, v in dpt_times[name].items()})
+    # phase 25's main path (train_dpt's MS and S runs) adds to the warp's and
+    # the photometric kernels' counts
+    opt_count, opt_errs, opt_times, opt_step_ms = options_training(dev, card)
+    for name in ("warp_family_fwd", "photometric_fwd", "photometric_bwd"):
+        kernels[name]["launches"] += opt_count[name]
+        kernels[name]["options_train_launches"] = opt_count[name]
+        kernels[name]["options_max_abs_err"] = opt_errs[name]
+        kernels[name].update({f"options_b12_{k}": v for k, v in opt_times[name].items()})
+        kernels[name].update({f"options_{label}_step_ms": v for label, v in opt_step_ms.items()})
     print(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s [{card}]")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -785,9 +816,12 @@ def stream_times(ev, scene, items, card, version):
 
 # ====================================================== the mono slice
 
-def _mono_grids(dev, B, H, W, gen, S=S_SCALES):
+def _mono_grids(dev, B, H, W, gen, S=S_SCALES, stereo=False):
     """S reprojection grids (S, B, H, W, 2): random depth in [1, 80] m and
-    a small random pose per item, through the port's reproject_coords."""
+    a small random pose per item, through the port's reproject_coords; with
+    ``stereo``, KITTI's baseline instead of the pose, the left camera's for
+    the first half of the batch and the right's for the rest (the stereo
+    source's ``stereo_T``, ``data/kitti.py``)."""
     import torch
 
     from ssde_tpu_torch.data.kitti import KITTI_K
@@ -797,12 +831,18 @@ def _mono_grids(dev, B, H, W, gen, S=S_SCALES):
     K[:, 0, :] *= W
     K[:, 1, :] *= H
     inv_K = torch.linalg.inv(K)
+    baseline = torch.eye(4, device=dev).repeat(B, 1, 1)
+    baseline[:, 0, 3] = torch.where(torch.arange(B, device=dev) < B // 2, -0.1, 0.1)
     grids = []
     for _ in range(S):
         depth = torch.rand(B, 1, H, W, device=dev, generator=gen) * 79 + 1
-        aa = torch.randn(B, 3, device=dev, generator=gen) * 0.01
-        t = torch.randn(B, 3, device=dev, generator=gen) * 0.1
-        grids.append(reproject_coords(depth, inv_K, K, transformation_from_parameters(aa, t)))
+        if stereo:
+            T = baseline
+        else:
+            aa = torch.randn(B, 3, device=dev, generator=gen) * 0.01
+            t = torch.randn(B, 3, device=dev, generator=gen) * 0.1
+            T = transformation_from_parameters(aa, t)
+        grids.append(reproject_coords(depth, inv_K, K, T))
     return torch.stack(grids).contiguous()
 
 
@@ -956,13 +996,14 @@ def mono_slice(dev):
 
 def _selection(pinned=None, record=None, switches=None):
     """``min_reprojection`` of the train step with its argmin over
-    [identity, reprojection] recorded (``record``) or taken from
-    ``pinned``, one entry per scale; ``switches`` gets the pixels where the
-    run's own argmin differs from the pinned one."""
+    [identity, reprojection] (the reprojection alone under
+    --disable_automasking) recorded (``record``) or taken from ``pinned``,
+    one entry per scale; ``switches`` gets the pixels where the run's own
+    argmin differs from the pinned one."""
     import torch
 
     def select(reproj, ident, generator=None):
-        combined = torch.cat([ident, reproj], 1)
+        combined = reproj if ident is None else torch.cat([ident, reproj], 1)
         idx = torch.argmin(combined, 1, keepdim=True)
         if pinned is None:
             record.append(idx.cpu())
@@ -970,7 +1011,8 @@ def _selection(pinned=None, record=None, switches=None):
             want = pinned[len(switches)].to(idx.device)
             switches.append(int((idx != want).sum()))
             idx = want
-        return torch.gather(combined, 1, idx), (idx >= ident.shape[1]).to(combined.dtype)
+        n_ident = 0 if ident is None else ident.shape[1]
+        return torch.gather(combined, 1, idx), (idx >= n_ident).to(combined.dtype)
     return select
 
 
@@ -3987,6 +4029,58 @@ def dpt_kernels(dev, card):
     return errs, times
 
 
+def _time_train_step(what, trainer, batch, dev, card, want):
+    """The step of ``trainer`` alone, phases 24 and 25: 5 chained steps on
+    one device batch after 2 warm-up (CUDA events), its launches a step
+    (they must be ``want``), peak memory, the device's idle share over
+    IDLE_STEPS profiled steps and the top device operations (also written
+    to chiprun_out/). ``what`` starts the printed lines. Returns the ms."""
+    import torch
+
+    from ssde_tpu_torch.data.pipeline import to_device
+
+    counters = _gru_counters()
+    models, state = trainer.models, trainer.state
+    dbatch = to_device(batch, dev)
+    rng = torch.Generator(dev).manual_seed(SEED)
+    step = lambda: trainer.step_fn(models, state, dbatch, rng)  # noqa: E731
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    k = 5
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    for _ in range(k):
+        losses = step()
+    end.record()
+    last = float(losses["loss"])
+    ms = start.elapsed_time(end) / k
+    per = {name: fn.launches / k for name, fn in counters.items() if fn.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy, pwall, prof = _device_idle_share(step, IDLE_STEPS)
+    print(f"{what} step B={MONO_B} {H}x{W} bf16: {ms:.3f} ms, "
+          f"{MONO_B * 1e3 / ms:.2f} samples/s (mean of {k} chained after 2 warm-up; "
+          f"last loss {last:.5f}); launches a step {per}; peak memory {peak:.2f} GiB; "
+          f"device busy {busy:.1f} ms over {IDLE_STEPS} profiled steps: idle share "
+          f"{1 - busy / (IDLE_STEPS * ms):.1%} of {IDLE_STEPS} unprofiled steps, "
+          f"{1 - busy / pwall:.1%} of the profiled wall ({pwall:.1f} ms) [{card}]")
+    if not np.isfinite(last) or per != want:
+        fail(f"{what} step: loss {last}, launches a step {per}, expected {want}")
+    table = prof.key_averages().table(sort_by="device_time_total", row_limit=25)
+    os.makedirs("chiprun_out", exist_ok=True)
+    name = what.replace(" train ", "_profile_").replace(" ", "_")
+    with open(os.path.join("chiprun_out", f"{name}.txt"), "w") as f:
+        f.write(f"{card}\n{table}\n")
+    print(f"  top device operations of the {what} step over {IDLE_STEPS} profiled steps:")
+    for line in table.splitlines()[:12]:
+        print("   ", line[:160])
+    return ms
+
+
 def dpt_train_runs(dev, card, log):
     """Phase 24 (b) and (c): train_dpt.main() with no --model (DPTTrainer)
     and with --model rn_encoder_with_attention at the Options defaults
@@ -3998,7 +4092,6 @@ def dpt_train_runs(dev, card, log):
     weights_0 (:func:`dpt_resume`). Returns the launches of the runs."""
     import torch
 
-    from ssde_tpu_torch.data.pipeline import to_device
     from ssde_tpu_torch.data.synthetic import make_synthetic_batch
     from ssde_tpu_torch.scripts import train_dpt
     from ssde_tpu_torch.train import trainer as trainer_mod
@@ -4060,76 +4153,24 @@ def dpt_train_runs(dev, card, log):
             if label == "dpt_gru":  # (e), on the state that weights_0 holds
                 dpt_resume(dev, card, trainer, folder, argv)
 
-            # the step alone: chained steps on one batch on the card
-            models, state = trainer.models, trainer.state
-            dbatch = to_device(batch, dev)
-            rng = torch.Generator(dev).manual_seed(SEED)
-            step = lambda: trainer.step_fn(models, state, dbatch, rng)  # noqa: E731
-            for _ in range(2):
-                step()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for fn in counters.values():
-                fn.launches = 0
-            k = 5
-            start, end = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-            start.record()
-            for _ in range(k):
-                losses = step()
-            end.record()
-            last = float(losses["loss"])
-            ms = start.elapsed_time(end) / k
-            per = {name: fn.launches / k for name, fn in counters.items() if fn.launches}
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            busy, pwall, prof = _device_idle_share(step, IDLE_STEPS)
-            print(f"dpt train {label} step B={MONO_B} {H}x{W} bf16: {ms:.3f} ms, "
-                  f"{MONO_B * 1e3 / ms:.2f} samples/s (mean of {k} chained after 2 warm-up; "
-                  f"last loss {last:.5f}); launches a step {per}; peak memory {peak:.2f} GiB; "
-                  f"device busy {busy:.1f} ms over {IDLE_STEPS} profiled steps: idle share "
-                  f"{1 - busy / (IDLE_STEPS * ms):.1%} of {IDLE_STEPS} unprofiled steps, "
-                  f"{1 - busy / pwall:.1%} of the profiled wall ({pwall:.1f} ms) [{card}]")
-            if not np.isfinite(last) or per != {"warp_family_fwd": 2, "photometric_fwd": 1,
-                                                "photometric_bwd": 1}:
-                fail(f"dpt train {label} step: loss {last}, launches a step {per}")
-            table = prof.key_averages().table(sort_by="device_time_total", row_limit=25)
-            os.makedirs("chiprun_out", exist_ok=True)
-            with open(os.path.join("chiprun_out", f"dpt_profile_{label}.txt"), "w") as f:
-                f.write(f"{card}\n{table}\n")
-            print(f"  top device operations of the {label} step over {IDLE_STEPS} profiled "
-                  f"steps:")
-            for line in table.splitlines()[:12]:
-                print("   ", line[:160])
-            del trainer, models, state, dbatch, obs, prof
+            _time_train_step(f"dpt train {label}", trainer, batch, dev, card,
+                             {"warp_family_fwd": 2, "photometric_fwd": 1, "photometric_bwd": 1})
+            del trainer, obs
             torch.cuda.empty_cache()
     finally:
         torch.backends.cudnn.allow_tf32 = False
     return total
 
 
-def _dpt_step_run(label, batch, where, net, loss_dtype, select):
-    """One step of ``label``'s model (forward and backward, without Adam) at
-    64x128, B=2 on ``where``, the networks in ``net``, the geometry, warp and
-    loss in ``loss_dtype``; ``select`` replaces the automask's minimum.
-    Returns (losses, gradients by (module, name) as float64 on the CPU)."""
-    import torch
-
+def _step_run(models, loss_fn, opts, batch, where, net, loss_dtype, select):
+    """One step of ``models`` (forward and backward, without Adam) on
+    ``where`` with the networks in ``net`` and the geometry, warp and loss
+    in ``loss_dtype`` (``steps._full``); ``select`` replaces the automask's
+    minimum. Returns (losses, gradients by (module, name) as float64 on the
+    CPU)."""
     import ssde_tpu_torch.train.steps as steps
-    from ssde_tpu_torch.config import Options
     from ssde_tpu_torch.data.pipeline import to_device
-    from ssde_tpu_torch.train import steps_dpt
 
-    h, w = DPT_CPU_HW
-    gen = torch.Generator().manual_seed(SEED)
-    if label == "dpt_gru":
-        opts = Options(height=h, width=w, batch_size=2, compute_dtype="float32",
-                       frame_ids=[0, -1, 1], scales=[0])
-        models, loss_fn = steps_dpt.build_dpt_models(opts, where, gen), steps_dpt.dpt_loss_fn
-        groups = ("dpt", "pose_encoder", "pose")
-    else:
-        opts = Options(height=h, width=w, batch_size=2, compute_dtype="float32")
-        models = steps.build_mono_models(opts, where, gen, attention_encoder=True)
-        loss_fn, groups = steps.mono_loss_fn, ("encoder", "depth", "pose_encoder", "pose")
     for m in models.modules():
         m.to(net)
     inputs = steps.preprocess_train(to_device(batch, where), opts)
@@ -4147,9 +4188,75 @@ def _dpt_step_run(label, batch, where, net, loss_dtype, select):
     finally:
         for k, v in plain.items():
             setattr(steps, k, v)
+    groups = [g for g in ("encoder", "depth", "dpt", "pose_encoder", "pose", "predictive_mask")
+              if getattr(models, g, None) is not None]
     grads = {(g, k): p.grad.detach().cpu().double()
              for g in groups for k, p in getattr(models, g).named_parameters()}
     return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def _dpt_step_run(label, batch, where, net, loss_dtype, select):
+    """:func:`_step_run` of ``label``'s model at 64x128, B=2."""
+    import torch
+
+    import ssde_tpu_torch.train.steps as steps
+    from ssde_tpu_torch.config import Options
+    from ssde_tpu_torch.train import steps_dpt
+
+    h, w = DPT_CPU_HW
+    gen = torch.Generator().manual_seed(SEED)
+    if label == "dpt_gru":
+        opts = Options(height=h, width=w, batch_size=2, compute_dtype="float32",
+                       frame_ids=[0, -1, 1], scales=[0])
+        models, loss_fn = steps_dpt.build_dpt_models(opts, where, gen), steps_dpt.dpt_loss_fn
+    else:
+        opts = Options(height=h, width=w, batch_size=2, compute_dtype="float32")
+        models = steps.build_mono_models(opts, where, gen, attention_encoder=True)
+        loss_fn = steps.mono_loss_fn
+    return _step_run(models, loss_fn, opts, batch, where, net, loss_dtype, select)
+
+
+def _hold_card_vs_cpu(what, dev, run):
+    """One step by phase 8's recipe, card vs CPU and each against an
+    all-float64 CPU run: ``run(where, net, loss_dtype, select)`` gives
+    (losses, gradients by (module, name)); the float64 run records the
+    automask argmin, the other two take it. Prints ``what``'s line and
+    fails past TOL_STEP_LOSS (losses, relative) or TOL_STEP_GRAD (each
+    gradient, of its float64 max)."""
+    import torch
+
+    f32, f64 = torch.float32, torch.float64
+    selected, switches = [], {}
+
+    def pinned(name):
+        switches[name] = []
+        return _selection(selected, switches=switches[name])
+
+    t0 = time.perf_counter()
+    l64, g64 = run("cpu", f64, f64, _selection(record=selected))
+    lg, gg = run(dev, f64, f32, pinned("card"))
+    lc, gc = run("cpu", f64, f32, pinned("CPU"))
+    secs = time.perf_counter() - t0
+    lrel = {"card vs CPU": max(abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc),
+            "card vs float64": max(abs(lg[k] - l64[k]) / abs(l64[k]) for k in l64),
+            "CPU vs float64": max(abs(lc[k] - l64[k]) / abs(l64[k]) for k in l64)}
+    ok = max(lrel.values()) <= TOL_STEP_LOSS and all(np.isfinite(v) for v in lg.values())
+    rows = []
+    for grp in dict.fromkeys(k[0] for k in g64):
+        keys = [k for k in g64 if k[0] == grp]
+        e = {n: max(_rel(a[k], g64[k] if n != "card vs CPU" else gc[k]) for k in keys)
+             for n, a in (("card vs CPU", gg), ("card vs float64", gg),
+                          ("CPU vs float64", gc))}
+        ok = ok and max(e.values()) <= TOL_STEP_GRAD
+        rows.append(f"{grp} " + "/".join(f"{v:.2e}" for v in e.values()))
+    print(f"{what} (networks float64, loss float32; {secs:.1f} s): loss card "
+          f"{lg['loss']:.8f}, CPU {lc['loss']:.8f}, float64 {l64['loss']:.8f}; worst rel "
+          + ", ".join(f"{k} {v:.2e}" for k, v in lrel.items()) + f" (bound {TOL_STEP_LOSS}); "
+          f"automask switches " + ", ".join(f"{sum(v)} ({k})" for k, v in switches.items())
+          + f"; gradients card vs CPU / card vs float64 / CPU vs float64 of max (bound "
+          f"{TOL_STEP_GRAD}): " + "; ".join(rows))
+    if not ok:
+        fail(f"{what}: the card and the CPU disagree")
 
 
 def dpt_card_vs_cpu(dev):
@@ -4161,46 +4268,13 @@ def dpt_card_vs_cpu(dev):
     so no relu mask needs pinning (phase 23 pins those of its float32 fusion
     module). Bounds: losses TOL_STEP_LOSS relative, each gradient
     TOL_STEP_GRAD of its float64 max."""
-    import torch
-
     from ssde_tpu_torch.data.synthetic import make_synthetic_batch
 
     h, w = DPT_CPU_HW
     batch = make_synthetic_batch(2, h, w, seed=SEED + 5)
-    f32, f64 = torch.float32, torch.float64
     for label, *_ in DPT_TRAIN_RUNS:
-        selected, switches = [], {}
-
-        def pinned(name):
-            switches[name] = []
-            return _selection(selected, switches=switches[name])
-
-        t0 = time.perf_counter()
-        l64, g64 = _dpt_step_run(label, batch, "cpu", f64, f64, _selection(record=selected))
-        lg, gg = _dpt_step_run(label, batch, dev, f64, f32, pinned("card"))
-        lc, gc = _dpt_step_run(label, batch, "cpu", f64, f32, pinned("CPU"))
-        secs = time.perf_counter() - t0
-        lrel = {"card vs CPU": max(abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc),
-                "card vs float64": max(abs(lg[k] - l64[k]) / abs(l64[k]) for k in l64),
-                "CPU vs float64": max(abs(lc[k] - l64[k]) / abs(l64[k]) for k in l64)}
-        ok = max(lrel.values()) <= TOL_STEP_LOSS and all(np.isfinite(v) for v in lg.values())
-        rows = []
-        for grp in dict.fromkeys(k[0] for k in g64):
-            keys = [k for k in g64 if k[0] == grp]
-            e = {n: max(_rel(a[k], g64[k] if n != "card vs CPU" else gc[k]) for k in keys)
-                 for n, a in (("card vs CPU", gg), ("card vs float64", gg),
-                              ("CPU vs float64", gc))}
-            ok = ok and max(e.values()) <= TOL_STEP_GRAD
-            rows.append(f"{grp} " + "/".join(f"{v:.2e}" for v in e.values()))
-        print(f"dpt card vs CPU {label}: one step at {h}x{w} B=2 (networks float64, loss "
-              f"float32; {secs:.1f} s): loss card {lg['loss']:.8f}, CPU {lc['loss']:.8f}, "
-              f"float64 {l64['loss']:.8f}; worst rel " + ", ".join(
-                  f"{k} {v:.2e}" for k, v in lrel.items()) + f" (bound {TOL_STEP_LOSS}); "
-              f"automask switches " + ", ".join(f"{sum(v)} ({k})" for k, v in switches.items())
-              + f"; gradients card vs CPU / card vs float64 / CPU vs float64 of max (bound "
-              f"{TOL_STEP_GRAD}): " + "; ".join(rows))
-        if not ok:
-            fail(f"dpt card vs CPU {label}: the card and the CPU disagree")
+        _hold_card_vs_cpu(f"dpt card vs CPU {label}: one step at {h}x{w} B=2", dev,
+                          lambda *a, label=label: _dpt_step_run(label, batch, *a))
 
 
 def dpt_resume(dev, card, trainer, folder, argv):
@@ -4279,6 +4353,330 @@ def dpt_training(dev, card):
           f"{({k: v for k, v in total.items() if v})} [{card}]")
     return total, errs, times
 
+
+
+# phase 25: the Monodepth2 options of the mono step. (b): train_dpt.main()
+# runs (label, extra arguments, the modules weights_0 holds beside encoder
+# and depth, the warp sources)
+OPTIONS_TRAIN_RUNS = (("ms", ["--use_stereo"], ("pose_encoder", "pose"), 3),
+                      ("s", ["--use_stereo", "--frame_ids", "0"], (), 1))
+# (c): one step at full width of every other configuration
+OPTIONS_STEP_CONFIGS = (("posecnn", {"pose_model_type": "posecnn"}),
+                        ("shared", {"pose_model_type": "shared"}),
+                        ("pose_input_all", {"pose_model_input": "all"}),
+                        ("predictive_mask", {"predictive_mask": True,
+                                             "disable_automasking": True}),
+                        ("v1_multiscale", {"v1_multiscale": True}),
+                        ("no_ssim_avg", {"no_ssim": True, "avg_reprojection": True}))
+# (d): every configuration card vs CPU
+OPTIONS_CPU_CONFIGS = (("ms", {"use_stereo": True}),
+                       ("s", {"use_stereo": True, "frame_ids": [0]})) + OPTIONS_STEP_CONFIGS
+OPTIONS_CPU_HW = (64, 128)
+# the MS step's photometric launch: 4 scales, 3 sources, the warped and the
+# identity maps, G = (S + 1) * F * B = 180; under --v1_multiscale one launch a
+# scale with G = 2 * F * B = 48 at that scale's size
+OPTIONS_G, V1_G = (S_SCALES + 1) * 3 * MONO_B, 2 * 2 * MONO_B
+V1_SIZES = tuple((H >> s, W >> s) for s in range(1, S_SCALES))
+
+
+def _option_launches(kw):
+    """The kernels' launches in one train step of the mono step under the
+    options ``kw`` (Options fields): a warp per source (per scale and source
+    under --v1_multiscale), one photometric forward and backward (one a
+    scale under --v1_multiscale, none under --no_ssim)."""
+    temporal = [f for f in kw.get("frame_ids", [0, -1, 1]) if f != "s"]
+    F = (2 if temporal != [0] else 0) + (1 if kw.get("use_stereo") else 0)
+    v1 = kw.get("v1_multiscale", False)
+    photo = 0 if kw.get("no_ssim") else (S_SCALES if v1 else 1)
+    return {"warp_family_fwd": F * (S_SCALES if v1 else 1), "photometric_fwd": photo,
+            "photometric_bwd": photo}
+
+
+def options_kernels(dev, card):
+    """Phase 25 (a): the family warp (#7) on the stereo source's grids (S = 4,
+    B=12, 640x192: MS warps three sources) and at S = 1 on the
+    --v1_multiscale sources (320x96, 160x48, 80x24), and the photometric
+    forward and backward (#5/#6) at the MS step's G = 180 and at
+    --v1_multiscale's G = 48 at those sizes, against their plain versions
+    (phase 6's tolerances); then each timed beside its plain version, the
+    bound and, for the warp, F.grid_sample. Returns (worst errors, times by
+    kernel and case)."""
+    import torch
+
+    from ssde_tpu_torch.ops.photometric import (photometric_bwd, photometric_bwd_reference,
+                                                photometric_fwd, photometric_reference, work)
+    from ssde_tpu_torch.ops.warp import warp_family_reference
+    from ssde_tpu_torch.ops.warp_banded import grad_masks, warp_family_fwd
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    B = MONO_B
+    errs = dict.fromkeys(("warp_family_fwd", "photometric_fwd", "photometric_bwd"), 0.0)
+    times = {k: {} for k in errs}
+    warps = [("stereo_s4_640x192", torch.rand(B, 3, H, W, device=dev, generator=gen),
+              _mono_grids(dev, B, H, W, gen, stereo=True))]
+    warps += [(f"v1_s1_{w}x{h}", torch.rand(B, 3, h, w, device=dev, generator=gen),
+               _mono_grids(dev, B, h, w, gen, S=1)) for h, w in V1_SIZES]
+    photos = [(f"g{OPTIONS_G}_640x192", OPTIONS_G, H, W)]
+    photos += [(f"v1_g{V1_G}_{w}x{h}", V1_G, h, w) for h, w in V1_SIZES]
+    print(f"options kernels vs plain versions at B={B} (warp abs {TOL_WARP}, its grid "
+          f"gradient {TOL_WARP} of max; photometric fwd abs {TOL_PHOTO}, bwd {TOL_PHOTO_BWD} "
+          f"of max); times on {card} (CUDA events; 20 launches after 3 warm-up, order plain, "
+          f"kernel, kernel, plain; library: F.grid_sample border on one grid, no residuals)")
+
+    def timed(name, case, k, p, lib, cost):
+        with torch.no_grad():
+            tp1, tk1, tk2, tp2 = cuda_ms(p), cuda_ms(k), cuda_ms(k), cuda_ms(p)
+            tl = None if lib is None else cuda_ms(lib)
+        bms, by = bound(*cost, "float32")
+        entry = {"ms": (tk1 + tk2) / 2, "plain_ms": (tp1 + tp2) / 2, "bound_ms": bms,
+                 "bound_by": by, "library_ms": tl}
+        times[name].update({f"{case}_{key}": v for key, v in entry.items()})
+        return entry
+
+    for case, img, grids in warps:
+        S, _, h, w, _ = grids.shape
+        with torch.no_grad():
+            got, want = warp_family_fwd(img, grids), warp_family_reference(img, grids)
+        cot = torch.randn(S * B, 3, h, w, device=dev, generator=gen)
+        in_x, in_y = grad_masks(grids, h, w)
+
+        def dgrid(rdx, rdy):
+            return torch.stack([(cot * rdx).sum(1).reshape(S, B, h, w) * in_x,
+                                (cot * rdy).sum(1).reshape(S, B, h, w) * in_y], -1)
+
+        werr = max((a - b).abs().max().item() for a, b in zip(got, want))
+        gerr = _rel(dgrid(*got[1:]), dgrid(*want[1:]))
+        errs["warp_family_fwd"] = max(errs["warp_family_fwd"], werr)
+        n_warp, n_img = S * B * 3 * h * w, B * 3 * h * w
+        t = timed("warp_family_fwd", case, lambda: warp_family_fwd(img, grids),
+                  lambda: warp_family_reference(img, grids),
+                  lambda: torch.nn.functional.grid_sample(img, grids[0], padding_mode="border",
+                                                          align_corners=False),
+                  (20 * n_warp, 4 * (n_img + S * B * h * w * 2 + 3 * n_warp)))
+        print(f"  warp {case} S={S} B={B} {w}x{h}: abs {werr:.3e}, grid grad rel {gerr:.3e}; "
+              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) "
+              f"[{card}]")
+        if not (werr <= TOL_WARP and gerr <= TOL_WARP):
+            fail(f"options kernels: the warp disagrees with its plain version at {case}")
+        del got, want, cot
+    for case, G, h, w in photos:
+        preds = torch.rand(G, 3, h, w, device=dev, generator=gen)
+        targ = torch.rand(B, 3, h, w, device=dev, generator=gen)
+        gout = torch.randn(G, h, w, device=dev, generator=gen) / preds[0].numel()
+        with torch.no_grad():
+            pf, pf_ref = photometric_fwd(preds, targ), photometric_reference(preds, targ)
+            pb, pb_ref = (photometric_bwd(preds, targ, gout),
+                          photometric_bwd_reference(preds, targ, gout))
+        torch.cuda.synchronize()
+        ferr, berr = (pf - pf_ref).abs().max().item(), _rel(pb, pb_ref)
+        errs["photometric_fwd"] = max(errs["photometric_fwd"], ferr)
+        errs["photometric_bwd"] = max(errs["photometric_bwd"], (pb - pb_ref).abs().max().item())
+        tf = timed("photometric_fwd", case, lambda: photometric_fwd(preds, targ),
+                   lambda: photometric_reference(preds, targ), None,
+                   work("fwd", G, B, 3, h, w))
+        tb = timed("photometric_bwd", case, lambda: photometric_bwd(preds, targ, gout),
+                   lambda: photometric_bwd_reference(preds, targ, gout), None,
+                   work("bwd", G, B, 3, h, w))
+        print(f"  photometric {case} G={G} B={B} {w}x{h}: fwd abs {ferr:.3e}, bwd rel "
+              f"{berr:.3e}; fwd kernel {tf['ms']:.4f} ms, plain {tf['plain_ms']:.4f} ms, bound "
+              f"{tf['bound_ms']:.4f} ms ({tf['bound_by']}); bwd kernel {tb['ms']:.4f} ms, plain "
+              f"{tb['plain_ms']:.4f} ms, bound {tb['bound_ms']:.4f} ms ({tb['bound_by']}) "
+              f"[{card}]")
+        if not (ferr <= TOL_PHOTO and berr <= TOL_PHOTO_BWD):
+            fail(f"options kernels: a photometric kernel disagrees with its plain version "
+                 f"at {case}")
+        del preds, targ, gout, pf, pf_ref, pb, pb_ref
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+def options_train_runs(dev, card, log):
+    """Phase 25 (b): train_dpt.main() --model monodepth2 for MS (--use_stereo,
+    frames 0 -1 1) and S (--use_stereo --frame_ids 0) at the Options defaults
+    (640x192, B=12, bf16, synthetic data, one epoch of 8 steps and its
+    val()): finite losses, every module moved (S builds no pose network),
+    the launches (a warp per source, one photometric forward and backward a
+    step), weights_0 with its files; then the step alone as phase 24 times
+    it (ms, samples/s, peak memory, idle share) and its top device
+    operations. Returns (the launches of the runs, the step times)."""
+    import torch
+
+    from ssde_tpu_torch.data.synthetic import make_synthetic_batch
+    from ssde_tpu_torch.scripts import train_dpt
+    from ssde_tpu_torch.train import steps as steps_mod
+    from ssde_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = True  # the training configuration
+    counters = _gru_counters()
+    total = dict.fromkeys(counters, 0)
+    step_ms = {}
+    try:
+        for label, extra, pose_files, F in OPTIONS_TRAIN_RUNS:
+            argv = ["--model", "monodepth2", "--synthetic_data", "--num_epochs", "1",
+                    "--mono_pretrained", "0", "--log_dir", log, "--model_name", label, *extra]
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with _Observed(Trainer) as obs:
+                trainer = train_dpt.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {k: fn.launches for k, fn in counters.items()}
+            for k, v in launched.items():
+                total[k] += v
+            steps, vals = len(obs.history), len(obs.vals)
+            want = {**dict.fromkeys(counters, 0), "warp_family_fwd": F * (steps + vals),
+                    "photometric_fwd": steps + vals, "photometric_bwd": steps}
+            still, stuck = _moved(obs, trainer)
+            opt, models = trainer.opt, trainer.models
+            built = [type(m).__name__ for m in models.modules()]
+            print(f"options train {label}: main() {wall:.1f} s ({type(trainer).__name__}, "
+                  f"{opt.height}x{opt.width} B={opt.batch_size} {opt.compute_dtype}, frames "
+                  f"{steps_mod.frame_ids(opt)}, sources {list(models.source_ids)}, modules "
+                  f"{built}; build, {steps} steps, {vals} val(), save): losses "
+                  + " ".join(f"{h['loss']:.5f}" for h in obs.history)
+                  + f"; launches {({k: v for k, v in launched.items() if v})} [{card}]")
+            if type(trainer) is not Trainer or (opt.batch_size, opt.height, opt.width,
+                                                 opt.compute_dtype) != (MONO_B, H, W, "bfloat16"):
+                fail(f"options train {label}: {type(trainer).__name__} at {opt}")
+            if len(models.source_ids) != F or (models.pose is None) != (label == "s") \
+                    or (models.pose_encoder is None) != (label == "s"):
+                fail(f"options train {label}: sources {models.source_ids}, modules {built}")
+            if not steps or not all(np.isfinite(v) for h in obs.history for v in h.values()):
+                fail(f"options train {label}: {steps} steps, or a loss is not finite")
+            if launched != want:
+                fail(f"options train {label}: launches {launched}, expected {want}")
+            if still or stuck:
+                fail(f"options train {label}: modules that did not move {still}, "
+                     f"{len(stuck)} parameters with a gradient that did not move")
+            folder = os.path.join(log, label, "models", "weights_0")
+            files = sorted(os.listdir(folder))
+            need = sorted(["adam.pth", "encoder.pth", "depth.pth"]
+                          + [f"{m}.pth" for m in pose_files])
+            print(f"options train {label}: {folder}: {files}")
+            if files != need:
+                fail(f"options train {label}: weights_0 holds {files}, expected {need}")
+
+            step_ms[label] = _time_train_step(
+                f"options train {label}", trainer,
+                make_synthetic_batch(MONO_B, H, W, steps_mod.frame_ids(opt), seed=SEED), dev,
+                card, {"warp_family_fwd": F, "photometric_fwd": 1, "photometric_bwd": 1})
+            del trainer, models, obs
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return total, step_ms
+
+
+def options_steps(dev, card):
+    """Phase 25 (c): one train step at full width (ResNet18, B=12, 640x192,
+    bf16, synthetic data) of each other configuration: the launches it
+    states (:func:`_option_launches`) and finite losses; then three chained
+    steps timed (CUDA events) and the peak memory."""
+    import torch
+
+    from ssde_tpu_torch.config import Options
+    from ssde_tpu_torch.data.pipeline import to_device
+    from ssde_tpu_torch.data.synthetic import make_synthetic_batch
+    from ssde_tpu_torch.train import steps
+    from ssde_tpu_torch.train.state import TrainState
+
+    torch.backends.cudnn.allow_tf32 = True
+    counters = _gru_counters()
+    try:
+        for label, kw in OPTIONS_STEP_CONFIGS:
+            opts = Options(**kw)
+            models = steps.build_mono_models(opts, dev, torch.Generator().manual_seed(SEED))
+            state = TrainState(models.parameters(), opts.learning_rate,
+                               opts.scheduler_step_size, 8)
+            batch = to_device(make_synthetic_batch(MONO_B, H, W, steps.frame_ids(opts),
+                                                   seed=SEED), dev)
+            rng = torch.Generator(dev).manual_seed(SEED)
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            losses = {k: float(v) for k, v in steps.train_step(models, state, batch, rng).items()}
+            launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
+            want = {k: v for k, v in _option_launches(kw).items() if v}
+            torch.cuda.reset_peak_memory_stats()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            for _ in range(3):
+                steps.train_step(models, state, batch, rng)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / 3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"options step {label} ({kw}): modules "
+                  f"{[type(m).__name__ for m in models.modules()]}, loss {losses['loss']:.5f}; "
+                  f"launches {launched}; {ms:.3f} ms a step at B={MONO_B} {H}x{W} bf16 (mean of "
+                  f"3 chained after 1), peak memory {peak:.2f} GiB [{card}]")
+            if launched != want or not all(np.isfinite(v) for v in losses.values()):
+                fail(f"options step {label}: launches {launched}, expected {want}; "
+                     f"losses {losses}")
+            del models, state, batch
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _options_step_run(kw, batch, where, net, loss_dtype, select):
+    """:func:`_step_run` of the mono step under the options ``kw`` (Options
+    fields) at 64x128, B=2."""
+    import torch
+
+    import ssde_tpu_torch.train.steps as steps
+    from ssde_tpu_torch.config import Options
+
+    h, w = OPTIONS_CPU_HW
+    opts = Options(height=h, width=w, batch_size=2, compute_dtype="float32", **kw)
+    models = steps.build_mono_models(opts, where, torch.Generator().manual_seed(SEED))
+    return _step_run(models, steps.mono_loss_fn, opts, batch, where, net, loss_dtype, select)
+
+
+def options_card_vs_cpu(dev):
+    """Phase 25 (d): one step of every configuration at 64x128, B=2, card vs
+    CPU and each against an all-float64 CPU run, by phase 8's recipe (the
+    networks in float64, the geometry, warp and loss in float32: the kernels
+    on the card, their plain versions on the CPU; the automask argmin of the
+    float64 run). Bounds: losses TOL_STEP_LOSS relative, each gradient
+    TOL_STEP_GRAD of its float64 max."""
+    from ssde_tpu_torch.config import Options
+    from ssde_tpu_torch.data.synthetic import make_synthetic_batch
+    from ssde_tpu_torch.train import steps
+
+    h, w = OPTIONS_CPU_HW
+    for label, kw in OPTIONS_CPU_CONFIGS:
+        batch = make_synthetic_batch(2, h, w, steps.frame_ids(Options(**kw)), seed=SEED + 5)
+        _hold_card_vs_cpu(f"options card vs CPU {label}: one step at {h}x{w} B=2", dev,
+                          lambda *a, kw=kw, batch=batch: _options_step_run(kw, batch, *a))
+
+
+def options_training(dev, card):
+    """Phase 25: the Monodepth2 options of the mono step. (a) #5, #6 and #7
+    at their new shapes; (b) train_dpt.main() for MS and S; (c) one step of
+    each other configuration; (d) card vs CPU. Returns (launches of the main
+    path, (b), by kernel; the worst errors and the times of (a); (b)'s step
+    ms)."""
+    import torch
+
+    phase0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs, times = options_kernels(dev, card)
+    log = tempfile.mkdtemp(prefix="ssde_options_log_")
+    try:
+        total, step_ms = options_train_runs(dev, card, log)
+    finally:
+        shutil.rmtree(log, ignore_errors=True)
+    options_steps(dev, card)
+    options_card_vs_cpu(dev)
+    print(f"options: phase 25 took {time.perf_counter() - phase0:.1f} s; launches of its main "
+          f"path {({k: v for k, v in total.items() if v})} [{card}]")
+    return total, errs, times, step_ms
 
 if __name__ == "__main__":
     main()

@@ -1,14 +1,15 @@
 """Weights for the port: the JAX package's trees -> torch ``state_dict``s, and
 the reference's per-module ``.pth`` folder.
 
-``encoder_from_flax`` (the depth encoder and the 6-channel pose encoder),
-``depth_from_flax``, ``pose_decoder_from_flax``, ``gru_from_flax``,
+``encoder_from_flax`` (the depth encoder and the pose encoder),
+``depth_from_flax`` (also the predictive-mask decoder),
+``pose_decoder_from_flax``, ``pose_cnn_from_flax``, ``gru_from_flax``,
 ``head_from_flax`` and ``fusion_from_flax`` invert
 ``ssde_tpu/checkpoint.py``'s ``convert_resnet_encoder`` (:132),
 ``convert_depth_decoder`` (:187), ``convert_pose_decoder`` (:216),
-``convert_gru_blocks`` (:312), ``convert_head`` (:350) and
-``convert_fusion_v2`` (:361): conv kernels HWIO -> OIHW, ``h0`` and ``c0``
-(1, H, W, C) -> (1, C, H, W), BatchNorm
+``convert_pose_cnn`` (:229), ``convert_gru_blocks`` (:312),
+``convert_head`` (:350) and ``convert_fusion_v2`` (:361): conv kernels
+HWIO -> OIHW, ``h0`` and ``c0`` (1, H, W, C) -> (1, C, H, W), BatchNorm
 ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/``running_mean``/
 ``running_var``. ``dpt_from_flax`` and ``attention_encoder_from_flax``
 have no JAX converter to invert: the port's modules carry the JAX trees'
@@ -18,9 +19,9 @@ arrays; nothing here imports flax.
 The folder layout is the reference's (``ssde_tpu/checkpoint.py:3-8``,
 reference trainer.py:711-763): ``weights_<epoch>/`` holds one ``.pth``
 state dict per module (``encoder``, ``depth``, ``pose_encoder``, ``pose``,
-``gru``, ``head``, ``fusion``, ``dpt``), ``encoder.pth`` also carries the
-``height``, ``width`` and ``use_stereo`` entries, and ``adam.pth`` the
-optimizer's state dict.
+``gru``, ``head``, ``fusion``, ``dpt``, ``predictive_mask``), ``encoder.pth``
+also carries the ``height``, ``width`` and ``use_stereo`` entries, and
+``adam.pth`` the optimizer's state dict.
 :func:`save_folder` writes it, :func:`load_folder` reads it; one module's
 file is read by :func:`read_module` and loaded strictly, so a file whose
 keys or shapes do not match raises. A missing file is skipped, as the
@@ -112,6 +113,21 @@ def pose_decoder_from_flax(params: Mapping) -> StateDict:
     for idx, name in enumerate(("squeeze", "pose_0", "pose_1", "pose_2")):
         sd[f"net.{idx}.weight"] = _oihw(params[name]["kernel"])
         sd[f"net.{idx}.bias"] = _t(params[name]["bias"])
+    return sd
+
+
+def pose_cnn_from_flax(params: Mapping) -> StateDict:
+    """``ssde_tpu.models.PoseCNN`` params -> ``PoseCNN`` state_dict (inverse
+    of ``convert_pose_cnn``, :229-240: ``conv_N`` -> ``net.N``,
+    ``pose_conv`` as it is)."""
+    sd: StateDict = {}
+    for name in sorted(params):
+        if name.startswith("conv_"):
+            _conv(sd, f"net.{name[5:]}", params[name])
+        elif name == "pose_conv":
+            _conv(sd, name, params[name])
+        else:
+            raise KeyError(f"unexpected PoseCNN tree entry {name!r}")
     return sd
 
 
@@ -299,7 +315,8 @@ def load_depth(decoder: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> None
 
 # the module files of a folder, in the reference's order, and the entries
 # that encoder.pth carries beside its weights
-MODULE_NAMES = ("encoder", "depth", "pose_encoder", "pose", "gru", "head", "fusion", "dpt")
+MODULE_NAMES = ("encoder", "depth", "pose_encoder", "pose", "gru", "head", "fusion", "dpt",
+                "predictive_mask")
 # the module files of a Monodepth2 warm start (``--mono_pretrained``): those
 # that ``ssde_tpu/checkpoint.py`` ``load_monodepth2_checkpoint`` (:243-276) reads
 WARM_START_NAMES = ("encoder", "depth", "pose_encoder", "pose", "gru", "head", "fusion")

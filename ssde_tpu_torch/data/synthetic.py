@@ -2,7 +2,13 @@
 
 The JAX package's module cannot be imported without JAX (``ssde_tpu.data``
 imports its device-side transforms), so the generator is copied here; its
-items are bit-identical to the JAX package's. A textured fronto-parallel
+items are bit-identical to the JAX package's, but for the stereo frame.
+With "s" among the frames, ``color/s`` is the plane one pixel further on
+(the JAX generator's is frame 0 itself, so the stereo identity error is 0
+everywhere and no warp's error can win the minimum), and the item carries
+``stereo_T``, the left camera's as the KITTI datasets give it
+(``data/kitti.py``), which the JAX generator leaves out (its stereo
+training on synthetic data stops at a ``KeyError``). A textured fronto-parallel
 plane slides horizontally across frames, which gives the photometric loss
 genuine parallax to learn from without a KITTI tree.
 """
@@ -12,6 +18,11 @@ from __future__ import annotations
 import numpy as np
 
 from .kitti import IDENTITY_JITTER, KITTI_K, item_rng, sample_jitter
+
+# the left camera's stereo_T, unflipped: a 0.1 baseline to the right camera
+# with the sign the KITTI datasets give it
+LEFT_STEREO_T = np.eye(4, dtype=np.float32)
+LEFT_STEREO_T[0, 3] = -0.1
 
 
 def _texture(h, w, seed):
@@ -28,7 +39,8 @@ def _shifted_frame(tex, h, w, shift):
 
 class SyntheticKittiDataset:
     """Quacks like KITTIDataset: items with f"color/{i}" (H, W, 3), "K",
-    "jitter" and, with ``load_depth``, "depth_gt"."""
+    "jitter", with "s" among the frames "stereo_T", and with
+    ``load_depth`` "depth_gt"."""
 
     def __init__(self, height=64, width=128, length=32, frame_idxs=(0, -1, 1),
                  is_train=True, load_depth=False, seed=0):
@@ -52,7 +64,7 @@ class SyntheticKittiDataset:
         base_shift = (index * 3) % 32
         inputs = {}
         for i in self.frame_idxs:
-            shift = int(np.clip(base_shift + 2 * (i if i != "s" else 0), 0, 63))
+            shift = int(np.clip(base_shift + (2 * i if i != "s" else 1), 0, 63))
             inputs[f"color/{i}"] = _shifted_frame(self._tex, self.height,
                                                   self.width, shift)
         inputs["K"] = KITTI_K.copy()
@@ -62,6 +74,8 @@ class SyntheticKittiDataset:
                             else IDENTITY_JITTER.copy())
         if self.load_depth:
             inputs["depth_gt"] = np.full((375, 1242), 10.0, dtype=np.float32)
+        if "s" in self.frame_idxs:
+            inputs["stereo_T"] = LEFT_STEREO_T.copy()
         return inputs
 
 

@@ -1,7 +1,8 @@
 """PyTorch (NCHW) counterparts of ``ssde_tpu.models``: the modules that
 the recurrent family's (GRU v1-v10) streaming inference and sequence
-training, the mono train step (with the ResNet or the attention encoder),
-the DPT-hybrid's train step and the 3-frame fusion models run."""
+training, the mono train step (with the ResNet or the attention encoder,
+and every pose network), the DPT-hybrid's train step and the 3-frame
+fusion models run."""
 
 from .attention import AttentionConv, AttentionStem, ResidualAttentionUnit
 from .attention_resnet import (AttentionBottleneck, AttentionResNet, AttentionResNet18,
@@ -12,7 +13,7 @@ from .depth_decoder import DepthDecoder
 from .dpt import DPTDepthModel, get_mean_attention_map
 from .fusion import (FeatureFusionBlock, FeatureFusionBlock_v2, FeatureFusionBlock_v3, Fusion,
                      Fusion_v3, GRUFusionBlock, GRUFusionBlock_v2, UpscalePS)
-from .pose import PoseDecoder
+from .pose import PoseCNN, PoseDecoder
 from .recurrent import (ConvGRUBlocks, ConvGRUCell, ConvLSTMCell, Head, RecurrentUnit,
                         make_gru)
 from .resnet import ResnetEncoder

@@ -7,8 +7,12 @@ min-reprojection loss are the mono step's (:func:`steps.predict_poses`,
 :func:`steps.generate_images_pred`, :func:`steps.compute_losses`), at
 scale 0 only: the DPT trainer forces frames [0, -1, 1] and scales [0]
 (``ssde_tpu/train/trainer.py:460-494``), so the photometric launch takes
-G = 4B pairs. Precision is the mono step's: the networks under autocast in
-``compute_dtype``, the geometry, warp and loss in float32.
+G = 4B pairs (6B under ``--use_stereo``, which adds the source "s"). The
+DPT step takes ``--use_stereo``, ``--no_ssim`` and ``--avg_reprojection``
+(the shared loss); the other Monodepth2 options raise
+(:func:`steps.check_supported`). Precision is the mono step's: the networks
+under autocast in ``compute_dtype``, the geometry, warp and loss in
+float32.
 """
 
 from __future__ import annotations
@@ -35,9 +39,11 @@ class DPTModels:
     pose: PoseDecoder
     opts: Options
 
-    # the warp sources of the loss (ssde_tpu/train/steps_dpt.py:35-40; the
-    # stereo source raises in steps.check_supported)
-    source_ids = (-1, 1)
+    @property
+    def source_ids(self):
+        """The warp sources of the loss: (-1, 1), and "s" under
+        ``--use_stereo`` (``ssde_tpu/train/steps_dpt.py:35-40``)."""
+        return (-1, 1, "s") if steps.stereo(self.opts) else (-1, 1)
 
     def modules(self):
         return (self.dpt, self.pose_encoder, self.pose)
@@ -58,7 +64,7 @@ def build_dpt_models(opts: Options, device="cuda",
     ``generator`` the weights are drawn from it on the CPU (flax's defaults
     for the DPT, torchvision's init for the pose encoder, torch's default for
     the decoder) before the move to ``device``."""
-    steps.check_supported(opts)
+    steps.check_supported(opts, "dpt")
     dpt = DPTDepthModel(non_negative=True)
     pose_encoder = ResnetEncoder(opts.num_layers, num_input_images=2)
     pose = PoseDecoder(pose_encoder.num_ch_enc, num_input_features=1,

@@ -86,9 +86,10 @@ def _remat(module: torch.nn.Module, *args, **kwargs):
 
 def check_supported(opts: Options) -> None:
     """Raise for what the GRU trainer does not take: an unknown
-    ``--gru_version`` (``ValueError``), then the mono step's options."""
+    ``--gru_version`` (``ValueError``), then the Monodepth2 options that
+    the JAX GRU step cannot run (``steps.check_supported``)."""
     block_version(opts.gru_version)
-    steps.check_supported(opts)
+    steps.check_supported(opts, "gru")
 
 
 @dataclasses.dataclass

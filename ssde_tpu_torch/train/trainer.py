@@ -42,6 +42,7 @@ out.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Dict, List
@@ -59,7 +60,7 @@ from ..data.transforms import preprocess_batch
 from ..eval.depth import _resize_bilinear_np, compute_errors
 from . import steps_dpt, steps_fusion
 from .state import TrainState
-from .steps import build_mono_models, check_supported, mono_loss_fn, train_step
+from .steps import build_mono_models, check_supported, frame_ids, mono_loss_fn, train_step
 
 # train-time GT crop (garg) rows/cols of 375x1242 (reference trainer.py:639-640)
 GARG_CROP = (153, 371, 44, 1197)
@@ -228,12 +229,8 @@ class TrainerBase:
     # ------------------------------------------------------------- data
     def _frame_idxs(self):
         """``--frame_ids``, and "s" under ``--use_stereo`` (reference
-        trainer.py:59-60): the data carry the opposite camera's frame,
-        though the step does not train on it yet."""
-        ids = list(self.opt.frame_ids)
-        if self.opt.use_stereo and "s" not in ids:
-            ids.append("s")
-        return ids
+        trainer.py:59-60): the frames the data carry (``steps.frame_ids``)."""
+        return frame_ids(self.opt)
 
     def _train_files(self) -> List[str]:
         """The training split's lines (``ssde_tpu/train/trainer.py:102-103``)."""
@@ -408,12 +405,16 @@ class TrainerBase:
 
     def _models_to_load(self) -> List[str]:
         """The modules :meth:`load_model` reads: ``--models_to_load``, and
-        :attr:`own_modules` when that is the default list, which does not
-        name them: a run resumed from its own ``weights_N/`` restores them
-        with the rest (the JAX trainer leaves them fresh, ``ROADMAP.md``
-        Queue 3). A list given that leaves them out leaves them out."""
+        :attr:`own_modules` (and ``predictive_mask`` where the bundle has
+        one) when that is the default list, which does not name them: a run
+        resumed from its own ``weights_N/`` restores them with the rest (the
+        JAX trainer leaves them fresh, ``ROADMAP.md`` Queue 3). A list given
+        that leaves them out leaves them out."""
         names = list(self.opt.models_to_load)
-        return names + list(self.own_modules) if names == Options().models_to_load else names
+        own = list(self.own_modules)
+        if getattr(self.models, "predictive_mask", None) is not None:
+            own.append("predictive_mask")
+        return names + own if names == Options().models_to_load else names
 
 
 class Trainer(TrainerBase):
@@ -451,6 +452,7 @@ class _FusionTrainerBase(TrainerBase):
 
     step_fn = staticmethod(steps_fusion.train_step)
     loss_fn = staticmethod(steps_fusion.fusion_loss_fn)
+    check_supported = staticmethod(functools.partial(check_supported, trainer="fusion"))
     own_modules = ("fusion",)
 
     def __init__(self, options: Options, device=None, seed: int = 0):
@@ -459,7 +461,12 @@ class _FusionTrainerBase(TrainerBase):
         super().__init__(options, device, seed)
 
     def _frame_idxs(self):
-        return list(steps_fusion.TRAIN_FRAMES)
+        """Frames 0, -1, -2, 1, and "s" under ``--use_stereo``, which the
+        data carry and the step does not read: the JAX fusion step warps
+        from (-1, 1) alone (``ssde_tpu/train/trainer.py:413-417``,
+        ``steps_fusion.py:58``)."""
+        ids = list(steps_fusion.TRAIN_FRAMES)
+        return ids + ["s"] if self.opt.use_stereo else ids
 
     def _build_models(self):
         return steps_fusion.build_fusion_models(self.opt, self.fusion_variant, self.device,
@@ -505,6 +512,7 @@ class DPTTrainer(TrainerBase):
 
     step_fn = staticmethod(steps_dpt.train_step)
     loss_fn = staticmethod(steps_dpt.dpt_loss_fn)
+    check_supported = staticmethod(functools.partial(check_supported, trainer="dpt"))
     own_modules = ("dpt",)
 
     def __init__(self, options: Options, device=None, seed: int = 0):

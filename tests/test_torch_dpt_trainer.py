@@ -20,6 +20,7 @@ A DPT folder is 1.5 GB (the model's 118 M parameters and Adam's two
 moments), so each run's log directory is removed when its tests end.
 """
 
+import ctypes
 import gc
 import os
 import shutil
@@ -50,6 +51,17 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _return_memory():
+    """After the module (and so after ``trained``'s last teardown), hand the
+    freed heap back to the system: a parallel run keeps this worker's
+    process for the files that follow, and this file's trainers take up to
+    5.5 GB."""
+    yield
+    gc.collect()
+    ctypes.CDLL(None).malloc_trim(0)
+
+
 def _argv(log_dir, label, *extra):
     return ["--synthetic_data", "--height", str(H), "--width", str(W), "--batch_size", str(B),
             "--num_epochs", "1", "--num_workers", "1", "--log_frequency", "4", "--no_cuda",
@@ -64,6 +76,37 @@ def _assert_identical(a, b):
     assert a.keys() == b.keys()
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("label", sorted(RUNS))
+def test_mono_pretrained(label, tmp_path, monkeypatch, capsys):
+    """A Monodepth2 folder at models/mono_640x192 (seed-1 mono modules).
+
+    Defined before ``trained`` so that it runs before that fixture's first
+    instance: the fixture holds a trained DPT trainer (118 M parameters with
+    Adam's moments) and its 1.5 GB weights_0 until the module ends, and
+    these trainers and writes would otherwise come on top of both."""
+    mono = build_mono_models(Options(height=H, width=W), "cpu", torch.Generator().manual_seed(1))
+    checkpoint.save_folder(str(tmp_path / "models" / "mono_640x192"), mono, height=H, width=W)
+    monkeypatch.chdir(tmp_path)
+    fresh = train_dpt.build_trainer(MonodepthOptions().parse(
+        _argv(tmp_path / "log", label, "--mono_pretrained", "0")))
+    warm = train_dpt.build_trainer(MonodepthOptions().parse(_argv(tmp_path / "log", label)))
+    out = capsys.readouterr().out
+    assert warm.opt.mono_pretrained == 1
+    for name in ("pose_encoder", "pose"):
+        _assert_identical(_state(getattr(warm.models, name)), _state(getattr(mono, name)))
+    if label == "dpt":
+        assert "---> Load monodepth2 weights: ['pose_encoder', 'pose']" in out
+        _assert_identical(_state(warm.models.dpt), _state(fresh.models.dpt))
+        return
+    assert "atten1..4 left at their init" in out
+    _assert_identical(_state(warm.models.depth), _state(mono.depth))
+    got, init = _state(warm.models.encoder), _state(fresh.models.encoder)
+    resnet = _state(mono.encoder)
+    for k, v in got.items():
+        assert torch.equal(v, init[k] if k.startswith("atten") else resnet[k]), k
+    assert sum(k.startswith("atten") for k in got) == 4 * 5  # 3 convs and 2 tables each
 
 
 @pytest.fixture(scope="module", params=sorted(RUNS))
@@ -147,39 +190,14 @@ def test_resume_restores_every_module(trained, tmp_path):
 
 
 def test_models_to_load_pose_only_leaves_the_depth_network(trained, tmp_path):
-    label, trainer, folder, _ = trained
-    fresh = train_dpt.build_trainer(MonodepthOptions().parse(_argv(tmp_path, label)))
+    """The depth network stays at its seeded init: the state the trained
+    run started from (no second fresh trainer of 118 M parameters)."""
+    label, trainer, folder, record = trained
     part = train_dpt.build_trainer(MonodepthOptions().parse(
         _argv(tmp_path, label, "--load_weights_folder", str(folder),
-              "--models_to_load", "pose_encoder", "pose")))
+              "--models_to_load", "pose_encoder", "pose", "--mono_pretrained", "0")))
     for name in RUNS[label][2]:
-        _assert_identical(_state(getattr(part.models, name)), _state(getattr(fresh.models, name)))
+        _assert_identical(_state(getattr(part.models, name)), record["start"][name])
     for name in ("pose_encoder", "pose"):
         _assert_identical(_state(getattr(part.models, name)),
                           _state(getattr(trainer.models, name)))
-
-
-@pytest.mark.parametrize("label", sorted(RUNS))
-def test_mono_pretrained(label, tmp_path, monkeypatch, capsys):
-    """A Monodepth2 folder at models/mono_640x192 (seed-1 mono modules)."""
-    mono = build_mono_models(Options(height=H, width=W), "cpu", torch.Generator().manual_seed(1))
-    checkpoint.save_folder(str(tmp_path / "models" / "mono_640x192"), mono, height=H, width=W)
-    monkeypatch.chdir(tmp_path)
-    fresh = train_dpt.build_trainer(MonodepthOptions().parse(
-        _argv(tmp_path / "log", label, "--mono_pretrained", "0")))
-    warm = train_dpt.build_trainer(MonodepthOptions().parse(_argv(tmp_path / "log", label)))
-    out = capsys.readouterr().out
-    assert warm.opt.mono_pretrained == 1
-    for name in ("pose_encoder", "pose"):
-        _assert_identical(_state(getattr(warm.models, name)), _state(getattr(mono, name)))
-    if label == "dpt":
-        assert "---> Load monodepth2 weights: ['pose_encoder', 'pose']" in out
-        _assert_identical(_state(warm.models.dpt), _state(fresh.models.dpt))
-        return
-    assert "atten1..4 left at their init" in out
-    _assert_identical(_state(warm.models.depth), _state(mono.depth))
-    got, init = _state(warm.models.encoder), _state(fresh.models.encoder)
-    resnet = _state(mono.encoder)
-    for k, v in got.items():
-        assert torch.equal(v, init[k] if k.startswith("atten") else resnet[k]), k
-    assert sum(k.startswith("atten") for k in got) == 4 * 5  # 3 convs and 2 tables each

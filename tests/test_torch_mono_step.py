@@ -257,19 +257,41 @@ def test_other_models_are_not_ported(model, tmp_path):
     assert type(train_dpt.build_trainer(opts, "cpu")).__name__ == want
 
 
-@pytest.mark.parametrize("flag,value,name", [
-    ("predictive_mask", True, "predictive_mask"),
-    ("v1_multiscale", True, "v1_multiscale"),
-    ("use_stereo", True, "use_stereo"),
-    ("no_ssim", True, "no_ssim"),
-    ("avg_reprojection", True, "avg_reprojection"),
-    ("pose_model_type", "posecnn", "posecnn"),
-    ("pose_model_type", "shared", "shared"),
-    ("pose_model_input", "all", "pose_model_input"),
-])
-def test_unported_options_raise(flag, value, name):
-    with pytest.raises(NotImplementedError, match=name):
-        build_mono_models(_opts(**{flag: value}))
+REFUSED = [("pose_model_type", "posecnn"), ("pose_model_type", "shared"),
+           ("pose_model_input", "all"), ("predictive_mask", True), ("v1_multiscale", True)]
+
+
+@pytest.mark.parametrize("trainer", ["dpt", "fusion", "gru"])
+@pytest.mark.parametrize("flag,value", REFUSED)
+def test_unported_options_raise(trainer, flag, value):
+    """The options that a trainer's JAX step cannot run raise, naming the
+    option and the trainer; the mono and attention trainers take all of
+    them (tests/test_torch_mono_options.py)."""
+    from ssde_tpu_torch.train.trainer import DPTTrainer, FusionV3Trainer
+    from ssde_tpu_torch.train.trainer_gru import GRUTrainer
+
+    cls = {"dpt": DPTTrainer, "fusion": FusionV3Trainer, "gru": GRUTrainer}[trainer]
+    opts = _opts(**{flag: value}, disable_automasking=flag == "predictive_mask")
+    with pytest.raises(NotImplementedError, match=f"--{flag}.*the {trainer} trainer"):
+        cls.check_supported(opts)
+    build_mono_models(opts, "cpu")
+
+
+@pytest.mark.parametrize("trainer", ["dpt", "fusion", "gru"])
+def test_trainers_take_the_loss_options(trainer):
+    """--no_ssim and --avg_reprojection reach every trainer's loss, the
+    shared compute_losses; --use_stereo the DPT and fusion trainers'."""
+    from ssde_tpu_torch.train.trainer import DPTTrainer, FusionV3Trainer
+    from ssde_tpu_torch.train.trainer_gru import GRUTrainer
+
+    cls = {"dpt": DPTTrainer, "fusion": FusionV3Trainer, "gru": GRUTrainer}[trainer]
+    cls.check_supported(_opts(no_ssim=True, avg_reprojection=True))
+    stereo = _opts(use_stereo=True)
+    if trainer == "gru":
+        with pytest.raises(NotImplementedError, match="--use_stereo: the gru trainer"):
+            cls.check_supported(stereo)
+    else:
+        cls.check_supported(stereo)
 
 
 def _synthetic_argv(tmp_path, *extra):
