@@ -24,7 +24,8 @@ Phases, each fatal on failure:
              warm-up protocol throughput at B=8 (CUDA events / host clock)
   6. mono kernels  the family warp (#7) and the photometric error forward
              and backward (#5, #6) against their plain versions at the mono
-             slice's shapes (640x192, B=12 and 48, G=10B) and ragged ones;
+             slice's shapes (640x192, B=12 and 48, and B=16 of phase 26's
+             bench_loader --fed; G=10B) and ragged ones;
              the photometric kernels also at the edges of their strips and
              bands, at W = 1, 2, 3 (mod 4) and at G = 240
   7. mono slice    the mono trainer built by the port's entry point at the
@@ -194,6 +195,23 @@ Phases, each fatal on failure:
              eight at 64x128, B=2, card vs CPU and each against float64
              (networks float64, the loss float32, the automask argmin of the
              float64 run)
+ 26. bench       the bench entry points and the trainer's logs: (a)
+             scripts/bench_infer's main() (B=32, ResNet18, 640x192, bf16):
+             its JSON line and the finite disparity of that run; (b)
+             scripts/bench_gru's
+             main() for v10, v9 and v5 at B=8, T=3, bf16, 10 steps each after
+             3 warm-up (their JSON lines, peak memory, the launches of
+             #1-#7), and v5 at the Options defaults B=12, T=10 (3 steps,
+             its launches with the checkpointed block's forward twice);
+             (c) scripts/bench_loader's main(): the thread and process
+             tables at 1, 2, 4 and 8 workers on 192 JPEGs of 1242x375, then
+             --fed (the mono step at B=16 fed by the Loader, 96 JPEGs, one
+             epoch a row) with and without --cache; (d) train_dpt.main()
+             --model monodepth2 at the Options defaults (B=12, bf16,
+             synthetic data) with --log_frequency 1 for an epoch: the
+             examples/s lines in the JAX format (hours, minutes, seconds)
+             and the TensorBoard files of train/ and val/ read back (tags,
+             steps), or, where tensorboard does not import, none written
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, each with its launches on the main path (for
@@ -214,7 +232,9 @@ worst errors and times at the DPT step's shapes under ``dpt_*``; phase
 25's, train_dpt's MS and S runs, is added to the same counts and given
 alone as ``options_train_launches``, with their worst errors and times at
 the new shapes under ``options_b12_*`` and the two steps' ms under
-``options_*_step_ms``), its time, its plain
+``options_*_step_ms``; phase 26's, the bench scripts' and the logged
+trainer's runs, is added to the GRU step's and the mono step's kernels and
+given alone as ``bench_launches``), its time, its plain
 version's (conv3x3_fwd: float32 serving at B=1, and under bf16_b8_* and
 f32_b8_* its bf16 and float32 bodies at a B=8 frame-step; conv3x3_dx and
 conv3x3_dw: bf16, and float32 under f32_b8_*; attend3_fwd and attend3_bwd:
@@ -234,10 +254,10 @@ import itertools
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -250,6 +270,7 @@ SCENE_FRAMES, WARMUP_FRAMES, EVAL_BATCH = 8, 10, 8  # script defaults (:55-63)
 LATENCY_FRAMES, WARMUP_RUNS = 100, 5  # p90 of 100 samples has 10 beyond it
 # mono slice: 640x192, frames [0, -1, 1], scales 0-3 (Options defaults)
 MONO_B, BENCH_B, S_SCALES = 12, 48, 4
+FED_B = 16  # bench_loader --fed: its --batch_size default (scripts/bench_loader.py)
 # kernel vs plain version, float32 on the card:
 #  warp: coordinates rounded as the twin rounds them, the lerp may fuse
 #    multiply-adds -> 1e-5 absolute on images in [0, 1]; its grid gradient
@@ -431,6 +452,9 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        import ssde_tpu_torch.scripts.bench_gru  # noqa: F401
+        import ssde_tpu_torch.scripts.bench_infer  # noqa: F401
+        import ssde_tpu_torch.scripts.bench_loader  # noqa: F401
         import ssde_tpu_torch.scripts.evaluate_depth  # noqa: F401
         import ssde_tpu_torch.scripts.evaluate_depth_fusion  # noqa: F401
         import ssde_tpu_torch.scripts.evaluate_depth_gru_fusion  # noqa: F401
@@ -442,21 +466,17 @@ def main() -> None:
         import ssde_tpu_torch.scripts.train_fusion_v3  # noqa: F401
         import ssde_tpu_torch.scripts.train_gru  # noqa: F401
         from ssde_tpu_torch.ops.build import load_library
+        from ssde_tpu_torch.scripts.bench_common import describe
     except ImportError as e:
         fail(f"the port is not importable next to chip_smoke.py ({e})")
 
     # ------------------------------------------------------------ 1. setup
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader", "-i", "0"],
-                         capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip()
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    print(f"device: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()})")
-    print(card)  # name, power.limit as nvidia-smi gives them
+    try:  # versions, the card's name and count, then its name and power.limit
+        card = describe(dev)  # as nvidia-smi gives them
+    except RuntimeError as e:
+        fail(str(e))
     t0 = time.perf_counter()
     lib = load_library()
     print(f"kernel library {lib.path.name}: nvcc {lib.build_seconds:.2f} s, "
@@ -584,6 +604,12 @@ def main() -> None:
         kernels[name]["options_max_abs_err"] = opt_errs[name]
         kernels[name].update({f"options_b12_{k}": v for k, v in opt_times[name].items()})
         kernels[name].update({f"options_{label}_step_ms": v for label, v in opt_step_ms.items()})
+    # phase 26's main path (the bench entry points and the trainer's logs) adds
+    # to the GRU step's and the mono step's kernels
+    bench_count = bench_entry_points(dev, card)
+    for name, n in bench_count.items():
+        kernels[name]["launches"] += n
+        kernels[name]["bench_launches"] = n
     print(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s [{card}]")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -865,7 +891,8 @@ def mono_kernels(dev, card):
     print(f"mono kernels vs plain versions: warp abs {TOL_WARP}, its grid gradient "
           f"{TOL_WARP} of max; photometric fwd abs {TOL_PHOTO}, bwd {TOL_PHOTO_BWD} of max")
     cases = [(MONO_B, H, W, "reproject"), (BENCH_B, H, W, "reproject"),
-             (MONO_B, H, W, "border"), (3, 190, 630, "reproject"), (2, 37, 45, "border")]
+             (FED_B, H, W, "reproject"), (MONO_B, H, W, "border"), (3, 190, 630, "reproject"),
+             (2, 37, 45, "border")]
     for B, h, w, kind in cases:
         img = torch.rand(B, 3, h, w, device=dev, generator=gen)
         if kind == "reproject":
@@ -4677,6 +4704,260 @@ def options_training(dev, card):
     print(f"options: phase 25 took {time.perf_counter() - phase0:.1f} s; launches of its main "
           f"path {({k: v for k, v in total.items() if v})} [{card}]")
     return total, errs, times, step_ms
+
+
+# phase 26: the bench entry points and the trainer's logs
+BENCH_GRU_VERSIONS = ("v10", "v9", "v5")  # at B=8, T=3 (scripts/bench_gru.py:34-37)
+BENCH_GRU_STEPS, BENCH_DEFAULTS_STEPS = 10, 3  # v5 also at the Options defaults B=12, T=10
+BENCH_LOADER_IMAGES, BENCH_FED_IMAGES = 192, 96  # JPEGs of the tables and of the fed rows
+HM_LINE = (r"step +\d+ \| examples/s: +[0-9.]+ \| loss: [0-9.]+ \| "
+           r"time elapsed: \d{2,}h\d\dm\d\ds \| time left: \d{2,}h\d\dm\d\ds")
+
+
+class _Tee:
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.lines)
+
+
+def _zeroed(counters):
+    import torch
+
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _read(counters):
+    import torch
+
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def _gru_step_launches(version, T=GRU_T, remat="0"):
+    """Kernel launches of one GRU train step of ``version`` over T frames (the
+    block and the Head unrolled over T with a backward; the loss's warp of 2
+    sources and its photometric forward and backward). Under a ``remat``
+    mode other than "0" (steps_gru.remat_mode) the block's forward runs
+    again in the backward."""
+    launches = {**_block_launches(version, T), "warp_family_fwd": 2, "photometric_fwd": 1,
+                "photometric_bwd": 1}
+    if remat != "0":
+        launches["conv3x3_fwd"] += len(slice_convs(version, H, W)) * T
+        launches["attend3_fwd"] += len(slice_attention(version, H, W)) * T
+    return launches
+
+
+def bench_scripts(dev, card):
+    """Phase 26 (a)-(c): bench_infer, bench_gru and bench_loader through their
+    main() on the card. Returns the launches of their runs by kernel."""
+    import torch
+
+    from ssde_tpu_torch.scripts import bench_gru, bench_infer, bench_loader
+    from ssde_tpu_torch.train.steps_gru import remat_mode
+
+    counters = _gru_counters()
+    total = dict.fromkeys(counters, 0)
+    torch.backends.cudnn.allow_tf32 = True  # the training configuration
+    keep = {k: os.environ.get(k) for k in ("BENCH_BATCH", "BENCH_LAYERS", "BENCH_GRU_VERSIONS",
+                                           "BENCH_T", "BENCH_STEPS", "BENCH_H", "BENCH_W",
+                                           "BENCH_GRU_REMAT")}
+    try:
+        for k in keep:
+            os.environ.pop(k, None)
+        # (a) the deploy path's frames/s at the script's defaults (B=32, ResNet18, bf16)
+        _zeroed(counters)
+        result, disp = bench_infer.main(dev, H, W)
+        launched = _read(counters)
+        for k, v in launched.items():
+            total[k] += v
+        print(f"bench_infer: disparity {tuple(disp.shape)} in [{disp.min().item():.5f}, "
+              f"{disp.max().item():.5f}]; launches {({k: v for k, v in launched.items() if v})} "
+              f"(the decoder's convs are cuDNN's) [{card}]")
+        if set(result) != {"metric", "value", "unit", "batch", "ms_per_batch"} \
+                or result["metric"] != f"kitti_{W}x{H}_depth_infer_frames_per_sec_per_chip" \
+                or result["batch"] != 32 or not result["value"] > 0:
+            fail(f"bench_infer: {result}")
+        if tuple(disp.shape) != (32, 1, H, W) or not torch.isfinite(disp).all() \
+                or not 0 < disp.min() <= disp.max() < 1:
+            fail(f"bench_infer: disparity {tuple(disp.shape)} not finite in (0, 1)")
+        del disp
+        # (b) the GRU train steps at B=8, T=3, and v5 at the Options defaults
+        os.environ.update(BENCH_GRU_VERSIONS=",".join(BENCH_GRU_VERSIONS),
+                          BENCH_BATCH=str(GRU_B), BENCH_T=str(GRU_T),
+                          BENCH_STEPS=str(BENCH_GRU_STEPS), BENCH_H=str(H), BENCH_W=str(W))
+        _zeroed(counters)
+        results = bench_gru.main(dev)
+        launched = _read(counters)
+        for k, v in launched.items():
+            total[k] += v
+        runs = bench_gru.WARMUP + BENCH_GRU_STEPS
+        want = {k: runs * sum(_gru_step_launches(v)[k] for v in BENCH_GRU_VERSIONS)
+                for k in counters}
+        print(f"bench_gru {BENCH_GRU_VERSIONS} at B={GRU_B}, T={GRU_T}: launches {launched}, "
+              f"expected {want} ({runs} steps each) [{card}]")
+        keys = {"metric", "value", "unit", "batch", "seq_len", "ms_per_step"}
+        for v, r in zip(BENCH_GRU_VERSIONS, results):
+            metric = f"kitti_{W}x{H}_gru_{v}_train_frame_samples_per_sec"
+            if set(r) != keys or r["metric"] != metric \
+                    or (r["batch"], r["seq_len"]) != (GRU_B, GRU_T) or not r["value"] > 0:
+                fail(f"bench_gru {v}: {r}")
+        if launched != want:
+            fail(f"bench_gru: launches {launched}, expected {want}")
+        os.environ.update(BENCH_GRU_VERSIONS="v5", BENCH_BATCH="12", BENCH_T="10",
+                          BENCH_STEPS=str(BENCH_DEFAULTS_STEPS))
+        _zeroed(counters)
+        (r,) = bench_gru.main(dev)
+        launched = _read(counters)
+        for k, v in launched.items():
+            total[k] += v
+        mode = remat_mode(types.SimpleNamespace(gru_remat="auto", batch_size=12, len_sequence=10))
+        runs = bench_gru.WARMUP + BENCH_DEFAULTS_STEPS
+        want = {k: runs * v for k, v in _gru_step_launches("v5", 10, mode).items()}
+        print(f"bench_gru v5 at the Options defaults B=12, T=10 (--gru_remat auto -> {mode!r}: "
+              f"the encoder, decoder and block checkpointed): launches {launched}, expected "
+              f"{want} ({runs} steps) [{card}]")
+        if r["metric"] != f"kitti_{W}x{H}_gru_v5_train_frame_samples_per_sec" \
+                or (r["batch"], r["seq_len"]) != (12, 10) or not r["value"] > 0 \
+                or launched != want:
+            fail(f"bench_gru v5 at the defaults: {r}, launches {launched}, expected {want}")
+        torch.cuda.empty_cache()
+        # (c) the loader: threads and processes, then the mono step fed by it
+        _zeroed(counters)
+        rows = bench_loader.main(["--n_images", str(BENCH_LOADER_IMAGES), "--width", str(W),
+                                  "--height", str(H)], dev)
+        if _read(counters) != dict.fromkeys(counters, 0) or len(rows) != 8 \
+                or not all(items > 0 for _, _, items, _ in rows):
+            fail(f"bench_loader: rows {rows}")
+        best = {kind: max((items, w) for k2, w, items, _ in rows if k2 == kind)
+                for kind in ("thread", "process")}
+        print(f"bench_loader: best thread {best['thread'][0]:.1f} items/s ({best['thread'][1]} "
+              f"workers), best process {best['process'][0]:.1f} ({best['process'][1]}); "
+              f"process/thread {best['process'][0] / best['thread'][0]:.2f}x [{card}]")
+        for extra in ([], ["--cache"]):
+            argv = ["--fed", "--n_images", str(BENCH_FED_IMAGES), "--fed_epochs", "1",
+                    "--batch_size", str(FED_B), "--width", str(W), "--height", str(H), *extra]
+            _zeroed(counters)
+            rates = bench_loader.main(argv, dev)
+            launched = _read(counters)
+            for k, v in launched.items():
+                total[k] += v
+            steps = 1 + 3 * (BENCH_FED_IMAGES // FED_B)  # the warm-up, then 3 rows of an epoch
+            want = {**dict.fromkeys(counters, 0), "warp_family_fwd": 2 * steps,
+                    "photometric_fwd": steps, "photometric_bwd": steps}
+            print(f"bench_loader {' '.join(argv)}: samples/s {rates}; launches {launched}, "
+                  f"expected {want} [{card}]")
+            if launched != want or list(rates) != ["direct", "plain_put_prefetch", "direct2"] \
+                    or not all(v > 0 for v in rates.values()):
+                fail(f"bench_loader {argv}: rates {rates}, launches {launched}")
+    finally:
+        for k, v in keep.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        torch.backends.cudnn.allow_tf32 = False
+    return total
+
+
+def trainer_logs(dev, card, log):
+    """Phase 26 (d): one synthetic epoch of the mono trainer through
+    train_dpt.main(--model monodepth2) at the Options defaults (640x192,
+    B=12, bf16) with --log_frequency 1: the examples/s lines in the JAX
+    format, and the TensorBoard event files of train/ and val/ read back (or,
+    without the tensorboard package, none written). Returns the launches."""
+    import re
+
+    import torch
+
+    from ssde_tpu_torch.scripts import train_dpt
+
+    counters = _gru_counters()
+    torch.backends.cudnn.allow_tf32 = True  # the training configuration
+    tee = _Tee(sys.stdout)
+    argv = ["--model", "monodepth2", "--synthetic_data", "--num_epochs", "1", "--height", str(H),
+            "--width", str(W), "--batch_size", str(MONO_B), "--mono_pretrained", "0",
+            "--log_frequency", "1", "--log_dir", log]
+    try:
+        _zeroed(counters)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            trainer = train_dpt.main(argv)
+        launched = _read(counters)
+        wall = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    opt, steps = trainer.opt, trainer.step
+    want = {**dict.fromkeys(counters, 0), "warp_family_fwd": 4 * steps,
+            "photometric_fwd": 2 * steps, "photometric_bwd": steps}  # a val() a step
+    lines = [ln for ln in tee.text().splitlines() if "examples/s" in ln]
+    bad = [ln for ln in lines if not re.fullmatch(HM_LINE, ln)]
+    print(f"logs: train_dpt.main() {opt.height}x{opt.width} B={opt.batch_size} "
+          f"{opt.compute_dtype}, {steps} steps and {steps} val() in {wall:.1f} s; "
+          f"{len(lines)} examples/s lines, {len(bad)} off the JAX format; launches {launched}, "
+          f"expected {want} [{card}]")
+    if (opt.height, opt.width, opt.batch_size, opt.compute_dtype) != (H, W, MONO_B, "bfloat16") \
+            or len(lines) != steps or bad or launched != want:
+        fail(f"logs: {len(lines)} lines for {steps} steps, off the format {bad[:2]}, "
+             f"launches {launched}")
+    root = os.path.join(log, opt.model_name)
+    events = sorted(os.path.relpath(os.path.join(d, f), root)
+                    for d, _, files in os.walk(root) for f in files if "tfevents" in f)
+    try:
+        from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+        import torch.utils.tensorboard  # noqa: F401
+    except ImportError as e:
+        print(f"logs: tensorboard does not import here ({e}): the writers are a no-op, as in "
+              f"the JAX package; event files {events}")
+        if events or "the writers are a no-op" not in tee.text():
+            fail(f"logs: no tensorboard, yet event files {events} or no no-op line")
+        return launched
+    losses = {"loss"} | {f"loss/{s}" for s in range(S_SCALES)}
+    panels = {f"{kind}_{s}/{j}" for s in range(S_SCALES) for j in range(min(4, MONO_B))
+              for kind in ("color_0", "disp", "automask")}
+    for mode, want_scalars, want_images in (("train", losses, set()),
+                                            ("val", losses, panels)):
+        acc = EventAccumulator(os.path.join(root, mode), size_guidance={"scalars": 0,
+                                                                          "images": 0})
+        acc.Reload()
+        tags = acc.Tags()
+        got_steps = {t: [e.step for e in acc.Scalars(t)] for t in tags["scalars"]}
+        got_steps.update({t: [e.step for e in acc.Images(t)] for t in tags["images"]})
+        print(f"logs: {mode}/ holds {len(tags['scalars'])} scalar and {len(tags['images'])} "
+              f"image tags, steps {sorted(set(s for v in got_steps.values() for s in v))}")
+        if set(tags["scalars"]) != want_scalars or set(tags["images"]) != want_images \
+                or any(v != list(range(steps)) for v in got_steps.values()):
+            fail(f"logs: {mode}/ tags {tags['scalars']} {tags['images']}, steps {got_steps}")
+    return launched
+
+
+def bench_entry_points(dev, card):
+    """Phase 26: the bench entry points and the trainer's logs. Returns the
+    launches of its main path by kernel."""
+    phase0 = time.perf_counter()
+    total = bench_scripts(dev, card)
+    log = tempfile.mkdtemp(prefix="ssde_logs_")
+    try:
+        for k, v in trainer_logs(dev, card, log).items():
+            total[k] += v
+    finally:
+        shutil.rmtree(log, ignore_errors=True)
+    print(f"bench: phase 26 took {time.perf_counter() - phase0:.1f} s; launches of its main "
+          f"path {({k: v for k, v in total.items() if v})} [{card}]")
+    return total
+
 
 if __name__ == "__main__":
     main()

@@ -1,11 +1,11 @@
 """Host batching and the copy to the device (counterpart of
-``ssde_tpu/data/pipeline.py`` :22-116).
+``ssde_tpu/data/pipeline.py``).
 
-A thread pool decodes items and collates them ahead of the training step
-(numpy, NHWC, as the JAX package's loader gives them); the main thread then
-copies each batch to the device from page-locked memory, without blocking,
-on the current stream. The batch order is the JAX loader's: the same
-``random.Random(seed)`` shuffle.
+A thread pool (or, with ``use_processes``, a process pool) decodes items and
+collates them ahead of the training step (numpy, NHWC, as the JAX package's
+loader gives them); the main thread then copies each batch to the device
+from page-locked memory, without blocking, on the current stream. The batch
+order is the JAX loader's: the same ``random.Random(seed)`` shuffle.
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ from __future__ import annotations
 import queue
 import random
 import threading
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing as mp
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Dict, Iterator
 
 import numpy as np
@@ -45,17 +46,31 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 class Loader:
     """Batches of ``dataset`` as dicts of numpy arrays, ``prefetch``
-    batches ahead of the consumer (thread pool of ``num_workers``)."""
+    batches ahead of the consumer, made by ``num_workers`` threads or, with
+    ``use_processes``, worker processes (``ssde_tpu/data/pipeline.py:47-63``).
+
+    The JAX package offers processes because PIL holds the interpreter lock
+    for part of each JPEG decode; they pay for pickling each decoded item
+    back. On an 8-core host the threads scaled to 8 workers and the
+    processes were slower at every count (``PERF.md`` §6): measure with
+    ``scripts/bench_loader`` before switching. The processes are forked,
+    once an epoch, with the dataset in a module global
+    (only the index goes to a worker), so ``dataset.__getitem__`` must stay
+    numpy and PIL: a forked child cannot use the parent's CUDA context, and
+    torch raises there if it tries. The trainers keep threads, as the JAX
+    trainers do. An exception in a worker, thread or process, is raised again
+    in the consumer."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 4, prefetch: int = 2,
-                 seed: int = 0):
+                 seed: int = 0, use_processes: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
+        self.use_processes = use_processes
         self._rng = random.Random(seed)
 
     def __len__(self):
@@ -73,16 +88,23 @@ class Loader:
         for i in range(0, stop, bs):
             yield idx[i:i + bs]
 
+    def _make_pool(self):
+        if self.use_processes:
+            return ProcessPoolExecutor(self.num_workers, mp_context=mp.get_context("fork"),
+                                       initializer=_init_worker, initargs=(self.dataset,))
+        return ThreadPoolExecutor(self.num_workers)
+
     def __iter__(self) -> Iterator[dict]:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
         batches = list(self._index_batches())  # shuffle on the caller's thread
+        fetch = _worker_getitem if self.use_processes else self.dataset.__getitem__
 
         def produce():
             try:
-                with ThreadPoolExecutor(self.num_workers) as pool:
+                with self._make_pool() as pool:
                     for batch_idx in batches:
-                        q.put(collate(list(pool.map(self.dataset.__getitem__, batch_idx))))
+                        q.put(collate(list(pool.map(fetch, batch_idx))))
             except Exception as e:  # raised again in the consumer's thread
                 q.put(e)
             q.put(sentinel)
@@ -97,3 +119,18 @@ class Loader:
                 raise item
             yield item
         t.join()
+
+
+# the process pool's worker state: forked children inherit the dataset, and
+# the initializer keeps it in a module global, so that a task carries only
+# its integer index (ssde_tpu/data/pipeline.py:115-124)
+_WORKER_DATASET = None
+
+
+def _init_worker(dataset):
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+
+
+def _worker_getitem(index):
+    return _WORKER_DATASET[index]

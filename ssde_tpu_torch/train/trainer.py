@@ -21,10 +21,20 @@ off for cuDNN and cuBLAS, process-wide. ``--profile_steps N`` traces steps
 5 .. 5+N with ``torch.profiler`` into ``<log_dir>/<model_name>/profile/``
 (:class:`ProfileWindow`). ``--num_devices`` 0 (all) and 1 train on one
 card; more raise, as multi-GPU training is not ported. There is no
-TensorBoard writer or ``device_prefetch`` yet.
+``device_prefetch`` yet.
 
-The port's warp is exact, so it reports no ``warp/band_violation`` and the
-JAX trainer's ``_check_band_violation`` guard has nothing to check.
+The logs are the JAX trainer's (:mod:`ssde_tpu_torch.logging_utils`):
+``Writers`` writes TensorBoard event files under
+``<log_dir>/<model_name>/train`` (each logging point's losses) and ``val``
+(the validation batch's losses and depth metrics, and image panels of
+colour, disparity and automask at every scale for 4 samples) where the
+``tensorboard`` package imports, and nothing where it does not (the
+trainer says which); ``TimeLogger`` prints the console line and
+``save_opts`` writes ``models/opt.json``. A validation batch that fails is
+reported and skipped; the fifth failure in a row raises. The port's warp is
+exact, so it reports no ``warp/band_violation``: its ``train`` tags are the
+JAX trainer's without that one, and the JAX trainer's
+``_check_band_violation`` guard has nothing to check.
 
 ``AttentionTrainer`` is the mono trainer with ``ResnetEncoderAttention``
 as the depth encoder; its ``--mono_pretrained`` warm start loads the
@@ -45,7 +55,7 @@ from __future__ import annotations
 import functools
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -58,6 +68,7 @@ from ..data.splits import readlines, split_file
 from ..data.synthetic import SyntheticKittiDataset
 from ..data.transforms import preprocess_batch
 from ..eval.depth import _resize_bilinear_np, compute_errors
+from ..logging_utils import TimeLogger, Writers, save_opts
 from . import steps_dpt, steps_fusion
 from .state import TrainState
 from .steps import build_mono_models, check_supported, frame_ids, mono_loss_fn, train_step
@@ -69,16 +80,11 @@ DEPTH_METRICS = ("de/abs_rel", "de/sq_rel", "de/rms", "de/log_rms", "da/a1", "da
 MONO_PRETRAINED = os.path.join("models", "mono_640x192")
 
 
-def _hm(seconds: float) -> str:
-    m = int(seconds) // 60
-    return f"{m // 60:02d}h{m % 60:02d}m"
-
-
-def run_device(opt: Options, device=None) -> torch.device:
+def run_device(opt: Optional[Options], device=None) -> torch.device:
     """The entry points' device (the trainers' and the evaluation
-    scripts'): ``device`` if given, else the CPU under ``--no_cuda`` and the
-    card otherwise. A card that is asked for and absent is an error:
-    nothing falls back to the CPU."""
+    scripts'): ``device`` if given (``opt`` is then not read), else the CPU
+    under ``--no_cuda`` and the card otherwise. A card that is asked for and
+    absent is an error: nothing falls back to the CPU."""
     if device is None:
         device = "cpu" if opt.no_cuda else "cuda"
     device = torch.device(device)
@@ -212,13 +218,17 @@ class TrainerBase:
         self.seed = seed
         self._build_data()
         self._build_models_and_state()
+        self.writers = Writers(self.log_path)
         self.num_total_steps = len(self.train_loader) * self.opt.num_epochs
-        self.start_time = time.time()
-        self.opt.save(os.path.join(self._models_dir(), "opt.json"))
+        self.time_logger = TimeLogger(self.num_total_steps, self.opt.batch_size)
+        save_opts(self.log_path, self.opt)
         print(f"Training model named: {self.opt.model_name}")
         print(f"Device: {self.device}"
               + (f" ({torch.cuda.get_device_name(self.device)})"
                  if self.device.type == "cuda" else ""))
+        print(f"TensorBoard event files under {self.log_path}/{{train,val}}"
+              if self.writers.writers else
+              "TensorBoard is not installed: the writers are a no-op, as in the JAX package")
 
     def _models_dir(self) -> str:
         """``<log_dir>/<model_name>/models``, made if missing."""
@@ -268,6 +278,7 @@ class TrainerBase:
         self.val_loader = Loader(self.val_dataset, opt.batch_size, shuffle=False,
                                  drop_last=True, num_workers=opt.num_workers)
         self._val_iter = None
+        self._val_failures = 0
 
     # ------------------------------------------------- models and state
     def _build_models(self):
@@ -303,8 +314,7 @@ class TrainerBase:
     def train(self):
         """``num_epochs`` epochs, a checkpoint after every
         ``--save_frequency``-th; a ``--profile_steps`` window still open at
-        the end is closed and written."""
-        self.start_time = time.time()
+        the end is closed and written, and the TensorBoard writers closed."""
         try:
             for self.epoch in range(self.opt.num_epochs):
                 self.run_epoch()
@@ -312,10 +322,13 @@ class TrainerBase:
                     self.save_model()
         finally:
             self.profile.close()
+            self.writers.close()
 
     def run_epoch(self) -> List[Dict[str, torch.Tensor]]:
         """One pass over the training set; the losses of every step, on the
-        device (reading them back waits for the steps)."""
+        device (reading them back waits for the steps). At each logging
+        point the console line, the step's losses to the ``train`` writer,
+        and :meth:`val`."""
         print(f"Training epoch {self.epoch}", flush=True)
         self.train_dataset.set_epoch(self.epoch)
         gen = torch.Generator(self.device).manual_seed(self.epoch)
@@ -328,18 +341,12 @@ class TrainerBase:
             early_phase = batch_idx % self.opt.log_frequency == 0 and self.step < 2000
             if early_phase or self.step % 2000 == 0:
                 loss = float(losses["loss"])  # waits for the step
-                self.log_time(time.time() - before, loss)
+                self.time_logger.log(self.step, time.time() - before, loss)
+                self.writers.scalars("train", self.step,
+                                     {k: float(v) for k, v in losses.items()})
                 self.val()
             self.step += 1
         return history
-
-    def log_time(self, duration: float, loss: float) -> None:
-        """The reference's console line (trainer.py:654-664)."""
-        elapsed = time.time() - self.start_time
-        left = (self.num_total_steps / max(self.step, 1) - 1.0) * elapsed if self.step else 0
-        print(f"step {self.step:>6} | examples/s: {self.opt.batch_size / max(duration, 1e-9):5.1f}"
-              f" | loss: {loss:.5f} | time elapsed: {_hm(elapsed)} | time left: {_hm(left)}",
-              flush=True)
 
     # -------------------------------------------------------------- val
     def process_batch(self, batch, generator=None):
@@ -351,9 +358,12 @@ class TrainerBase:
             _, losses, outputs = self.loss_fn(self.models, inputs, generator)
         return inputs, outputs, losses
 
-    def val(self) -> Dict[str, float]:
+    def val(self) -> Optional[Dict[str, float]]:
         """The losses of the next validation batch and, where it has
-        ``depth_gt``, its depth metrics; printed on one line and returned."""
+        ``depth_gt``, its depth metrics: printed on one line, written to the
+        ``val`` writer with the batch's image panels, and returned. A batch
+        whose forward fails is reported and skipped (None); the fifth such
+        failure in a row raises (``ssde_tpu/train/trainer.py:273-283``)."""
         if self._val_iter is None:
             self._val_iter = iter(self.val_loader)
         try:
@@ -361,12 +371,25 @@ class TrainerBase:
         except StopIteration:
             self._val_iter = iter(self.val_loader)
             host = next(self._val_iter)
-        _, outputs, losses = self.process_batch(device_batch(host, self.device))
+        batch = device_batch(host, self.device)
+        try:
+            inputs, outputs, losses = self.process_batch(batch)
+        except Exception as e:
+            # one flaky batch must not end a long run; a val path that is
+            # broken for good must not shrink to a line nobody reads
+            self._val_failures += 1
+            print(f"val failed ({self._val_failures} consecutive): {e}", flush=True)
+            if self._val_failures >= 5:
+                raise
+            return None
+        self._val_failures = 0
         scalars = {k: float(v) for k, v in losses.items()}
         if "depth_gt" in host:
             scalars.update(self.compute_depth_losses(host, outputs))
         print("val " + " ".join(f"{k} {v:.5f}" for k, v in sorted(scalars.items())),
               flush=True)
+        self.writers.scalars("val", self.step, scalars)
+        self.writers.images("val", self.step, inputs, outputs, self.opt.scales, [0])
         return scalars
 
     def compute_depth_losses(self, batch, outputs) -> Dict[str, float]:

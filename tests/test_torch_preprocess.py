@@ -54,26 +54,38 @@ def test_collate_batch_and_loader_order():
     u8 = [{"x": np.zeros((2, 2), np.uint8)}] * 2
     assert pipeline.collate(u8)["x"].dtype == np.uint8
     ds = synthetic.SyntheticKittiDataset(H, W, length=10)
-    port = pipeline.Loader(ds, 3, shuffle=True, num_workers=2, seed=7)
-    ref = jpipeline.Loader(ds, 3, shuffle=True, num_workers=2, seed=7)
-    assert len(port) == len(ref) == 3
-    for _ in range(2):  # two epochs: the shuffle stream advances alike
-        got, want = list(port), list(ref)
-        assert len(got) == len(want) == 3
-        for x, y in zip(got, want):
-            assert all(np.array_equal(x[k], y[k]) for k in y)
+    for use_processes in (False, True):  # threads, then the fork process pool
+        kw = dict(shuffle=True, num_workers=2, seed=7, use_processes=use_processes)
+        port, ref = pipeline.Loader(ds, 3, **kw), jpipeline.Loader(ds, 3, **kw)
+        assert len(port) == len(ref) == 3
+        for epoch in range(2):  # two epochs: the shuffle stream advances alike
+            got, want = list(port), list(ref)
+            assert len(got) == len(want) == 3, (use_processes, epoch)
+            for x, y in zip(got, want):
+                assert x.keys() == y.keys()
+                assert all(x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]) for k in y), \
+                    (use_processes, epoch)
 
 
 def test_loader_surfaces_worker_errors():
+    # the port's own rule: the JAX Loader's producer thread dies with the
+    # exception and its consumer waits on the queue for ever
     class Broken:
         def __len__(self):
-            return 4
+            return 8
 
         def __getitem__(self, i):
-            raise KeyError(f"item {i}")
+            if i == 5:
+                raise KeyError(f"item {i}")
+            return {"x": np.full((2, 2), i, np.float32)}
 
-    with pytest.raises(KeyError):
-        list(pipeline.Loader(Broken(), 2, num_workers=1))
+    for use_processes in (False, True):  # a thread, then a forked process
+        got = []
+        with pytest.raises(KeyError, match="item 5"):
+            for batch in pipeline.Loader(Broken(), 2, shuffle=False, num_workers=1,
+                                         use_processes=use_processes):
+                got.append(batch["x"][:, 0, 0].tolist())
+        assert got == [[0, 1], [2, 3]], use_processes  # the batch of item 5 raised
 
 
 @pytest.mark.parametrize("uint8", [False, True])

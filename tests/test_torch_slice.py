@@ -284,6 +284,8 @@ _NO_JAX = textwrap.dedent("""
     assert trainer.step == 2 and "depth_gt" in trainer.train_dataset[0]
     saved = sorted(os.listdir(os.path.join(root, "log", "mdp", "models", "weights_0")))
     assert saved == ["adam.pth", "depth.pth", "encoder.pth", "pose.pth", "pose_encoder.pth"]
+    import shutil
+    shutil.rmtree(root)  # the tree and its ~300 MB of weights
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("no-jax ok")
 """)
