@@ -117,8 +117,8 @@ Phases, each fatal on failure:
              the median ms a frame, card vs CPU; scripts/train_gru's main()
              with no --gru_version (v5) at B=8, T=3, bf16 for an epoch:
              finite losses, moved parameters, launches; v5's step ms,
-             frame-samples/s, memory and idle share, and its step at the
-             Options defaults (B=12, T=10, --gru_remat auto); one train step
+             frame-samples/s, memory and idle share (its step at the
+             Options defaults, B=12, T=10, is phase 26's bench_gru); one train step
              of every other version at B=2, T=2, 640x192, bf16, and every
              block step card vs CPU against float64 with pinned relus (phase
              12's recipe); a summary line per version
@@ -204,7 +204,7 @@ Phases, each fatal on failure:
              #1-#7), and v5 at the Options defaults B=12, T=10 (3 steps,
              its launches with the checkpointed block's forward twice);
              (c) scripts/bench_loader's main(): the thread and process
-             tables at 1, 2, 4 and 8 workers on 192 JPEGs of 1242x375, then
+             tables at 2 and 8 workers on 192 JPEGs of 1242x375, then
              --fed (the mono step at B=16 fed by the Loader, 96 JPEGs, one
              epoch a row) with and without --cache; (d) train_dpt.main()
              --model monodepth2 at the Options defaults (B=12, bf16,
@@ -212,6 +212,19 @@ Phases, each fatal on failure:
              examples/s lines in the JAX format (hours, minutes, seconds)
              and the TensorBoard files of train/ and val/ read back (tags,
              steps), or, where tensorboard does not import, none written
+ 27. native      the JAX package's .ckpt folders (run after phase 23, on
+             phase 19's tree and weights_0 folders): (a) for the mono
+             trainer (B=12) and GRU v10 (B=8, T=3), bf16, a trainer built
+             on the .pth folder writes a .ckpt folder with adam.ckpt
+             (checkpoint.flax_state through the copied JAX converters,
+             save_checkpoint); a trainer built on it holds the same modules,
+             Adam moments and step count bit for bit, and one further step
+             from each agrees within phase 8's tolerance; save and load
+             seconds and sizes of both formats; (b) evaluate_depth_gru_fusion's
+             build_evaluator on the v10 .ckpt folder streams the .pth
+             folder's disparity exactly (4 frames, B=1), and raises on a
+             folder without gru.ckpt; (c) evaluate_depth's main() on the mono
+             .ckpt folder gives phase 20's 7 metrics exactly
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, each with its launches on the main path (for
@@ -234,7 +247,9 @@ alone as ``options_train_launches``, with their worst errors and times at
 the new shapes under ``options_b12_*`` and the two steps' ms under
 ``options_*_step_ms``; phase 26's, the bench scripts' and the logged
 trainer's runs, is added to the GRU step's and the mono step's kernels and
-given alone as ``bench_launches``), its time, its plain
+given alone as ``bench_launches``; phase 27's, the trainers resumed from
+.ckpt folders and the GRU evaluator on one, is added to the same kernels
+and given alone as ``native_launches``), its time, its plain
 version's (conv3x3_fwd: float32 serving at B=1, and under bf16_b8_* and
 f32_b8_* its bf16 and float32 bodies at a B=8 frame-step; conv3x3_dx and
 conv3x3_dw: bf16, and float32 under f32_b8_*; attend3_fwd and attend3_bwd:
@@ -558,10 +573,11 @@ def main() -> None:
     root = tempfile.mkdtemp(prefix="ssde_kitti_")
     try:
         tree = kitti_train(dev, card, mono_step_ms, root)
-        mono_eval(dev, card, root, *tree)
+        mono_metrics = mono_eval(dev, card, root, *tree[:3])
         counts, errs = gru_family(dev, card)
         fusion_count, fusion_errs, fusion_times = fusion_serving(dev, card, root, *tree[:2])
         train_count, bwd_errs, bwd_times = fusion_training(dev, card, root, *tree[:2])
+        native_count = native_checkpoints(dev, card, root, tree[0], *tree[2:], mono_metrics)
     finally:
         os.environ.pop("SSDE_SPLITS_DIR", None)
         shutil.rmtree(root, ignore_errors=True)
@@ -587,6 +603,11 @@ def main() -> None:
         fusion_bf16_max_rel_err=max(v for k, v in bwd_errs.items() if k.startswith("bf16")),
         **{f"fusion_b12_bf16_{label}_{k}": v
            for label, entry in bwd_times.items() for k, v in entry.items()})
+    # phase 27's main path (the trainers resumed from .ckpt folders, the GRU
+    # evaluator on one) adds to the GRU step's and the mono step's kernels
+    for name, n in native_count.items():
+        kernels[name]["launches"] += n
+        kernels[name]["native_launches"] = n
     # phase 24's main path (train_dpt's DPT and attention-encoder runs) adds to
     # the warp's and the photometric kernels' counts
     dpt_count, dpt_errs, dpt_times = dpt_training(dev, card)
@@ -2540,8 +2561,6 @@ def _kitti_reload(name, build_trainer, parse, argv, trainer, folder, card, floor
     where that is more: FUSION_GRAD_FLOOR for the fusion trainers)."""
     import torch
 
-    from ssde_tpu_torch.train.trainer import device_batch
-
     t0 = time.perf_counter()
     trainer.epoch = 1
     extra = trainer.save_model()
@@ -2565,7 +2584,20 @@ def _kitti_reload(name, build_trainer, parse, argv, trainer, folder, card, floor
           f"{steps[0]} / {steps[1]} (per parameter {steps[2]} / {steps[3]})")
     if differ or a.keys() != b.keys() or steps[0] != steps[1] or steps[2] != steps[3]:
         fail(f"kitti {name}: the reloaded trainer differs: {differ[:5]}, steps {steps}")
+    _further_step(f"kitti {name}", trainer, reloaded, ("saved", "reloaded"), floor)
+    del reloaded
+
+
+def _further_step(name, trainer, other, labels, floor=0.0):
+    """One further step from ``trainer`` (twice: the card's own spread) and
+    from ``other`` (labelled ``labels``) on one batch of the trainer's set,
+    held at phase 8's tolerance (loss 1e-4 relative; each tensor's update
+    1e-3 of its largest, or of ``floor`` times its module's largest where
+    that is more)."""
+    import torch
+
     from ssde_tpu_torch.data.pipeline import collate
+    from ssde_tpu_torch.train.trainer import device_batch
 
     host = collate([trainer.train_dataset[i] for i in range(trainer.opt.batch_size)])
     # the further step in float32 with TF32 off: under bf16 autocast the card's
@@ -2575,7 +2607,7 @@ def _kitti_reload(name, build_trainer, parse, argv, trainer, folder, card, floor
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     runs = []
-    for t in (trainer, trainer, reloaded):  # the saved state twice: the card's own spread
+    for t in (trainer, trainer, other):  # the first state twice: the card's own spread
         models, state = copy.deepcopy((t.models, t.state))
         models.opts.compute_dtype = "float32"
         gen = torch.Generator(trainer.device).manual_seed(SEED)
@@ -2600,15 +2632,14 @@ def _kitti_reload(name, build_trainer, parse, argv, trainer, folder, card, floor
                      / max(x[k].abs().max().item(), floor * top[k.split(".")[0]])).item(), k)
                    for k in x if x[k].abs().max() > 0)
 
-    for label, j in (("saved vs saved", 1), ("saved vs reloaded", 2)):
+    for label, j in ((f"{labels[0]} vs {labels[0]}", 1), (f"{labels[0]} vs {labels[1]}", 2)):
         rel = abs(runs[0][0] - runs[j][0]) / abs(runs[0][0])
         g, p = worst(runs[0][1], runs[j][1]), worst(runs[0][2], runs[j][2])
-        print(f"kitti {name}: the further step in float32, {label}: loss {runs[0][0]:.6f} / "
+        print(f"{name}: the further step in float32, {label}: loss {runs[0][0]:.6f} / "
               f"{runs[j][0]:.6f} ({rel:.2e} relative); worst gradient difference {g[0]:.2e} "
               f"of its tensor's largest ({g[1]}), parameter {p[0]:.2e} ({p[1]})")
     if not (rel <= TOL_STEP_LOSS and g[0] <= TOL_STEP_GRAD and p[0] <= TOL_STEP_GRAD):
-        fail(f"kitti {name}: the resumed step disagrees")
-    del reloaded
+        fail(f"{name}: the resumed step disagrees")
 
 
 def _loader_rate(dataset, workers, passes=1):
@@ -2627,7 +2658,7 @@ def _loader_rate(dataset, workers, passes=1):
 def kitti_train(dev, card, mono_step_ms, root):
     """Phase 19: both trainers on a KITTI raw tree at KITTI's sizes, written
     under ``root``. Returns (data path, splits dir, the mono trainer's
-    weights_0) for phase 20."""
+    weights_0, the GRU trainer's) for phases 20 and 27."""
     import torch
 
     from ssde_tpu_torch.config import MonodepthOptions
@@ -2698,12 +2729,12 @@ def kitti_train(dev, card, mono_step_ms, root):
                 "--len_sequence", str(GRU_T), "--num_epochs", "1", "--train_n_tuples", "1",
                 "--test_n_tuples", "1", "--mono_pretrained", "0", "--log_dir", log,
                 "--model_name", "gru"]
-        trainer, folder = _kitti_trainer_run(
+        trainer, gru_weights = _kitti_trainer_run(
             "gru v10", GRUTrainer, train_gru.main, argv,
             ["encoder.pth", "depth.pth", "pose_encoder.pth", "pose.pth", "gru.pth", "adam.pth"],
             ["conv3x3_fwd", "conv3x3_dx", "conv3x3_dw", "warp_family_fwd", "photometric_fwd",
              "photometric_bwd"], card)
-        _kitti_reload("gru v10", train_gru.build_trainer, parse, argv, trainer, folder, card)
+        _kitti_reload("gru v10", train_gru.build_trainer, parse, argv, trainer, gru_weights, card)
         trainer.val = lambda: {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2729,7 +2760,7 @@ def kitti_train(dev, card, mono_step_ms, root):
     finally:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    return data, splits, mono_weights
+    return data, splits, mono_weights, gru_weights
 
 
 
@@ -2776,7 +2807,8 @@ def write_odometry_sequence(data, splits):
 
 def mono_eval(dev, card, root, data, splits, weights):
     """Phase 20: the mono and pose evaluation entry points on phase 19's
-    tree and its mono weights_0, everything written under ``root``."""
+    tree and its mono weights_0, everything written under ``root``. Returns
+    evaluate_depth's metrics (no --post_process) for phase 27."""
     import torch
 
     from ssde_tpu_torch.config import MonodepthOptions
@@ -2919,7 +2951,178 @@ def mono_eval(dev, card, root, data, splits, weights):
     launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
     print(f"eval: phase 20 took {time.perf_counter() - phase0:.1f} s; launches of the port's "
           f"kernels in it {launched} (its networks run in cuDNN) [{card}]")
+    return results["plain"][0]
 
+
+
+# ======================================================= native checkpoints
+
+NATIVE_FRAMES = 4  # phase 27 (b): frames of a streamed scene at B=1
+
+
+def _folder_mb(folder):
+    return sum(os.path.getsize(os.path.join(folder, f)) for f in os.listdir(folder)) / 2**20
+
+
+def _adam_by_parameter(trainer):
+    """(step, exp_avg, exp_avg_sq) of each parameter the optimizer trains, in
+    its order (None where Adam holds no state for it yet), on the host."""
+    opt = trainer.state.optimizer
+    return [tuple(opt.state[p][k].detach().cpu() for k in ("step", "exp_avg", "exp_avg_sq"))
+            if p in opt.state else None
+            for g in opt.param_groups for p in g["params"]]
+
+
+def _native_resume(name, build_trainer, parse, argv, pth, root, card):
+    """Phase 27 (a) for one trainer: a trainer built on phase 19's ``pth``
+    folder writes the JAX package's .ckpt folder (``checkpoint.flax_state``
+    through the copied converters, ``save_checkpoint`` with adam.ckpt); a
+    trainer built on that folder holds the same modules, Adam moments and
+    step count bit for bit (BatchNorm's ``num_batches_tracked``, which the
+    JAX format has not, left out), and one further step from each agrees
+    within phase 8's tolerance. Returns the .ckpt folder."""
+    import torch
+
+    from ssde_tpu_torch import checkpoint
+
+    by_pth = build_trainer(parse(argv + ["--load_weights_folder", pth]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    by_pth.load_model()
+    torch.cuda.synchronize()
+    pth_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scratch = os.path.join(root, f"pth_{name.replace(' ', '_')}")
+    checkpoint.save_folder(scratch, by_pth.models, by_pth.state.optimizer, height=H, width=W)
+    pth_save = time.perf_counter() - t0
+    pth_mb = _folder_mb(scratch)
+    shutil.rmtree(scratch)
+    folder = os.path.join(root, f"native_{name.replace(' ', '_')}")
+    t0 = time.perf_counter()
+    trees = checkpoint.flax_state(by_pth.models, by_pth.state.optimizer, by_pth.state.step)
+    checkpoint.save_checkpoint(folder, *trees, height=H, width=W, use_stereo=False)
+    ckpt_save = time.perf_counter() - t0
+    by_ckpt = build_trainer(parse(argv + ["--load_weights_folder", folder]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    by_ckpt.load_model()
+    torch.cuda.synchronize()
+    ckpt_load = time.perf_counter() - t0
+    print(f"native {name}: {sorted(os.listdir(folder))}; save .pth {pth_save:.3f} s "
+          f"({pth_mb:.1f} MiB), .ckpt {ckpt_save:.3f} s ({_folder_mb(folder):.1f} MiB); "
+          f"load_model .pth {pth_load:.3f} s, .ckpt {ckpt_load:.3f} s [{card}]")
+    a, b = _trainer_tensors(by_pth), _trainer_tensors(by_ckpt)
+    differ = [k for k in a if not k.endswith("num_batches_tracked")
+              and (k not in b or not torch.equal(a[k], b[k]))]
+    adam_a, adam_b = _adam_by_parameter(by_pth), _adam_by_parameter(by_ckpt)
+    fresh = [i for i, s in enumerate(adam_a) if s is None]  # no gradient reached them yet
+    adam_differ = [i for i, (sa, sb) in enumerate(zip(adam_a, adam_b))
+                   if sb is None or (sa is not None and not all(map(torch.equal, sa, sb)))
+                   or (sa is None and (sb[1].any() or sb[2].any()))]
+    steps = (by_pth.state.step, by_ckpt.state.step, _adam_steps(by_pth), _adam_steps(by_ckpt))
+    print(f"native {name}: the trainer on .ckpt against the one on .pth: "
+          f"{len(a) - len(differ)} of {len(a)} tensors bit-identical (num_batches_tracked "
+          f"not compared), Adam moments of {len(adam_a) - len(adam_differ)} of {len(adam_a)} "
+          f"parameters ({len(fresh)} without state in adam.pth, zero moments from adam.ckpt); "
+          f"steps {steps[0]} / {steps[1]} (per parameter {steps[2]} / {steps[3]})")
+    if differ or adam_differ or len(adam_a) != len(adam_b) or steps[0] != steps[1] \
+            or set(steps[3]) != {steps[1]}:
+        fail(f"native {name}: the trainer on the .ckpt folder differs: {differ[:5]}, Adam "
+             f"{adam_differ[:5]}, steps {steps}")
+    _further_step(f"native {name}", by_pth, by_ckpt, (".pth", ".ckpt"))
+    del by_pth, by_ckpt
+    torch.cuda.empty_cache()
+    return folder
+
+
+def native_checkpoints(dev, card, root, data, mono_weights, gru_weights, mono_metrics):
+    """Phase 27: the JAX package's .ckpt folders in the port, on phase 19's
+    weights_0 folders: (a) each trainer (mono at B=12, GRU v10 at B=8, T=3,
+    bf16) resumed from a .ckpt folder written from the .pth one, against the
+    trainer resumed from the .pth folder (:func:`_native_resume`); (b)
+    evaluate_depth_gru_fusion's build_evaluator on the v10 .ckpt folder
+    streams the .pth folder's disparity exactly, and raises on a folder
+    without gru.ckpt; (c) evaluate_depth's main() on the mono .ckpt folder
+    gives phase 20's metrics exactly. Returns its main path's launches."""
+    import torch
+
+    from ssde_tpu_torch.config import MonodepthOptions
+    from ssde_tpu_torch.data.synthetic import scene_frames
+    from ssde_tpu_torch.scripts import (evaluate_depth, evaluate_depth_gru_fusion, train_dpt,
+                                        train_gru)
+
+    phase0 = time.perf_counter()
+    counters = _gru_counters()
+    _zeroed(counters)
+    parse = MonodepthOptions().parse
+    log = os.path.join(root, "log_native")
+    torch.backends.cudnn.allow_tf32 = True  # the training configuration
+    try:
+        mono = _native_resume(
+            "mono", train_dpt.build_trainer, parse,
+            ["--model", "monodepth2", "--data_path", data, "--num_epochs", "1",
+             "--mono_pretrained", "0", "--log_dir", log], mono_weights, root, card)
+        gru = _native_resume(
+            "gru v10", train_gru.build_trainer, parse,
+            ["--gru_version", "v10", "--data_path", data, "--batch_size", str(GRU_B),
+             "--len_sequence", str(GRU_T), "--num_epochs", "1", "--train_n_tuples", "1",
+             "--test_n_tuples", "1", "--mono_pretrained", "0", "--log_dir", log,
+             "--model_name", "gru"], gru_weights, root, card)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    # (b) the GRU evaluator on both folders, and on one without gru.ckpt
+    frames = scene_frames(H, W, NATIVE_FRAMES)
+    disps = {}
+    for label, folder in ((".pth", gru_weights), (".ckpt", gru)):
+        opt = parse(["--gru_version", "v10", "--load_weights_folder", folder])
+        t0 = time.perf_counter()
+        ev = evaluate_depth_gru_fusion.build_evaluator(opt, dev)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        disps[label] = np.stack(ev.predict_scene(frames))
+        print(f"native gru v10: build_evaluator on the {label} folder {built:.2f} s (built "
+              f"and loaded), {NATIVE_FRAMES} frames streamed at B=1 [{card}]")
+        del ev
+    diff = np.abs(disps[".pth"] - disps[".ckpt"]).max()
+    print(f"native gru v10: streamed disparity {disps['.ckpt'].shape}, .ckpt against .pth "
+          f"max |d| {diff:.3e} (must be 0), range {disps['.ckpt'].min():.5f}.."
+          f"{disps['.ckpt'].max():.5f}")
+    if diff != 0 or not np.isfinite(disps[".ckpt"]).all():
+        fail("native gru v10: the evaluator on the .ckpt folder streams another disparity")
+    partial = os.path.join(root, "native_no_gru")
+    os.makedirs(partial)
+    for f in os.listdir(gru):
+        if f != "gru.ckpt":
+            os.symlink(os.path.join(gru, f), os.path.join(partial, f))
+    try:
+        evaluate_depth_gru_fusion.build_evaluator(
+            parse(["--gru_version", "v10", "--load_weights_folder", partial]), dev)
+        fail("native gru v10: build_evaluator served a folder without gru.ckpt")
+    except FileNotFoundError as e:
+        print(f"native gru v10: a folder without gru.ckpt raises FileNotFoundError: {e}")
+        if "gru.ckpt" not in str(e):
+            fail("native gru v10: the error does not name gru.ckpt")
+
+    # (c) evaluate_depth on the mono .ckpt folder against phase 20's run on .pth
+    t0 = time.perf_counter()
+    m = evaluate_depth.main(["--eval_mono", "--data_path", data, "--load_weights_folder", mono,
+                             "--height", str(H), "--width", str(W)])
+    names = evaluate_depth.METRIC_NAMES
+    print(f"native mono: evaluate_depth main() on the .ckpt folder {time.perf_counter() - t0:.2f} "
+          "s: " + " ".join(f"{n} {m[n]:.6f}" for n in names) + "; phase 20's on .pth: "
+          + " ".join(f"{n} {mono_metrics[n]:.6f}" for n in names))
+    if any(m[n] != mono_metrics[n] for n in names):
+        fail("native mono: evaluate_depth on the .ckpt folder gives other metrics")
+    launched = _read(counters)
+    missing = [k for k in ("conv3x3_fwd", "conv3x3_dx", "conv3x3_dw", "warp_family_fwd",
+                           "photometric_fwd", "photometric_bwd") if not launched[k]]
+    print(f"native: phase 27 took {time.perf_counter() - phase0:.1f} s; launches of its main "
+          f"path {launched} [{card}]")
+    if missing:
+        fail(f"native: {missing} launched no time on phase 27's main path")
+    return launched
 
 
 # ============================================== the rest of the GRU family
@@ -3231,10 +3434,9 @@ def gru_family(dev, card):
         add(launched)
     add(family_v5_main(dev, card))
     ms, rate, peak, idle = gru_step_times(dev, card, "v5")
-    defaults, peak_defaults = default_size_step(dev, card, "v5", "auto")
+    # (v5 at the Options defaults, B=12, T=10: phase 26's bench_gru)
     rows["v5"]["train"] = (f"B={GRU_B} T={GRU_T} {ms:.1f} ms, {rate:.1f} frame-samples/s, "
-                           f"{peak:.2f} GiB, idle {idle:.1%}; B=12 T=10 "
-                           f"{np.mean(defaults):.1f} ms, {peak_defaults:.2f} GiB")
+                           f"{peak:.2f} GiB, idle {idle:.1%}")
     for v in FAMILY:
         if v != "v5":
             launched, loss, secs = family_train_step(dev, card, v)
@@ -4710,6 +4912,7 @@ def options_training(dev, card):
 BENCH_GRU_VERSIONS = ("v10", "v9", "v5")  # at B=8, T=3 (scripts/bench_gru.py:34-37)
 BENCH_GRU_STEPS, BENCH_DEFAULTS_STEPS = 10, 3  # v5 also at the Options defaults B=12, T=10
 BENCH_LOADER_IMAGES, BENCH_FED_IMAGES = 192, 96  # JPEGs of the tables and of the fed rows
+BENCH_LOADER_WORKERS = "2,8"  # the tables' worker counts (the script's default is 1,2,4,8)
 HM_LINE = (r"step +\d+ \| examples/s: +[0-9.]+ \| loss: [0-9.]+ \| "
            r"time elapsed: \d{2,}h\d\dm\d\ds \| time left: \d{2,}h\d\dm\d\ds")
 
@@ -4837,8 +5040,8 @@ def bench_scripts(dev, card):
         # (c) the loader: threads and processes, then the mono step fed by it
         _zeroed(counters)
         rows = bench_loader.main(["--n_images", str(BENCH_LOADER_IMAGES), "--width", str(W),
-                                  "--height", str(H)], dev)
-        if _read(counters) != dict.fromkeys(counters, 0) or len(rows) != 8 \
+                                  "--height", str(H), "--workers", BENCH_LOADER_WORKERS], dev)
+        if _read(counters) != dict.fromkeys(counters, 0) or len(rows) != 4 \
                 or not all(items > 0 for _, _, items, _ in rows):
             fail(f"bench_loader: rows {rows}")
         best = {kind: max((items, w) for k2, w, items, _ in rows if k2 == kind)

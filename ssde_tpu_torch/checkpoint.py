@@ -26,18 +26,34 @@ also carries the ``height``, ``width`` and ``use_stereo`` entries, and
 file is read by :func:`read_module` and loaded strictly, so a file whose
 keys or shapes do not match raises. A missing file is skipped, as the
 reference's ``load_model`` skips it.
+
+The JAX package's own folders hold ``<name>.ckpt`` files instead
+(``ssde_tpu/checkpoint.py:30-101``): a pickle of ``{"params": flax msgpack
+bytes, "extra": {...}}``, ``extra`` holding ``batch_stats`` as msgpack
+bytes and, for the encoder, ``height``/``width``/``use_stereo``; ``adam.ckpt``
+holds the optax state. :func:`load_module`, :func:`save_module` and
+:func:`save_checkpoint` read and write them (:mod:`.serialization`, no
+flax), :func:`read_ckpt_folder` loads such a folder into a bundle through
+the converters above, and :func:`load_adam_ckpt` maps ``adam.ckpt``'s
+moments onto the port's Adam. A folder that holds any ``.pth`` is read as
+``.pth``, otherwise as ``.ckpt`` (the JAX rule, ``ssde_tpu/train/
+trainer.py:360-383``). The copies of the JAX converters
+(``convert_resnet_encoder`` and the rest, :func:`flax_state`) give the JAX
+trees of the port's modules, so the port writes such a folder without JAX.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import warnings
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .models.depth_decoder import module_order
+from .serialization import msgpack_restore, msgpack_serialize
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -348,13 +364,24 @@ def read_module(path: str) -> Tuple[StateDict, Dict[str, int]]:
     return {k: v for k, v in sd.items() if not k.startswith("encoder.fc.")}, meta
 
 
+def folder_format(folder: str) -> str:
+    """``".pth"`` when ``folder`` holds any ``.pth`` file, else ``".ckpt"``:
+    the JAX package's rule (``ssde_tpu/train/trainer.py:364``,
+    ``scripts/evaluate_depth.py:76``)."""
+    return ".pth" if any(f.endswith(".pth") for f in os.listdir(folder)) else ".ckpt"
+
+
 def load_folder(folder: str, models, names: Sequence[str] = MODULE_NAMES
                 ) -> Tuple[Dict[str, int], List[str]]:
     """Load ``<folder>/<name>.pth`` into ``models.<name>`` for each of
-    ``names`` that the bundle has (``MonoModels``, ``GRUModels`` or
-    ``FusionModels``); a missing file is skipped. Returns (the encoder's embedded entries, the
+    ``names`` that the bundle has (``MonoModels``, ``GRUModels``,
+    ``FusionModels`` or ``DPTModels``); a missing file is skipped. A folder
+    without ``.pth`` files is read as the JAX package's ``.ckpt`` folder
+    (:func:`read_ckpt_folder`). Returns (the encoder's embedded entries, the
     names loaded). Strict: a key or shape that does not match raises (the
     depth decoder may lack its dispconv heads, :func:`load_depth`)."""
+    if folder_format(folder) == ".ckpt":
+        return read_ckpt_folder(folder, models, names)
     meta: Dict[str, int] = {}
     loaded = []
     for name in names:
@@ -364,42 +391,43 @@ def load_folder(folder: str, models, names: Sequence[str] = MODULE_NAMES
             continue
         sd, m = read_module(path)
         meta.update(m)
-        if name == "depth":
-            load_depth(module, sd)
-        else:
-            module.load_state_dict(sd)
+        _load_module_sd(name, module, sd)
         loaded.append(name)
     return meta, loaded
 
 
+def _load_module_sd(name: str, module: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> None:
+    if name == "depth":
+        load_depth(module, sd)
+    else:
+        module.load_state_dict(sd)
+
+
 def load_reference_folder(folder: str, models) -> Dict[str, int]:
-    """Load a reference-format serving folder ({encoder,depth,gru}.pth, and
-    head.pth for the versions with a ``Head``) into ``models`` (a
-    :class:`ssde_tpu_torch.train.steps_gru.GRUModels`); returns the
+    """Load a serving folder of the GRU family (encoder, depth and gru, and
+    head for the versions with a ``Head``), ``.pth`` or ``.ckpt``, into
+    ``models`` (a :class:`ssde_tpu_torch.train.steps_gru.GRUModels`) through
+    :func:`load_eval_folder`: a missing folder or file raises. Returns the
     encoder's embedded entries."""
-    return load_folder(folder, models, ("encoder", "depth", "gru", "head"))[0]
+    names = ("encoder", "depth", "gru") + (("head",) if models.head is not None else ())
+    return load_eval_folder(folder, models, names)
 
 
 def load_eval_folder(folder: str, models, names: Sequence[str]) -> Dict[str, int]:
     """Load the modules ``names`` that an evaluation script reads from
-    ``folder`` (:func:`load_folder`, strict) and return the encoder's
-    embedded entries. Unlike training, evaluation needs every one of them:
-    a missing file raises. A folder of the JAX package's native ``.ckpt``
-    files (flax msgpack, ``ssde_tpu/checkpoint.py:44-56``) raises
-    ``NotImplementedError``: the port reads only ``.pth`` folders."""
+    ``folder`` (:func:`load_folder`, strict, ``.pth`` or ``.ckpt``) and
+    return the encoder's embedded entries. Unlike training, evaluation needs
+    every one of them: a missing file raises and names it."""
     if not os.path.isdir(folder):
         raise FileNotFoundError(
             f"Cannot find a folder at {folder} (the Monodepth2 model-zoo download "
             "is not ported: unzip a published model into that folder first)")
-    files = os.listdir(folder)
-    if not any(f.endswith(".pth") for f in files) and any(f.endswith(".ckpt") for f in files):
-        raise NotImplementedError(
-            f"{folder} holds the JAX package's native .ckpt files (flax msgpack), which "
-            "the port does not read; convert them to the reference's .pth layout")
     meta, loaded = load_folder(folder, models, names)
     missing = [n for n in names if n not in loaded]
     if missing:
-        raise FileNotFoundError(f"{folder} has no {', '.join(n + '.pth' for n in missing)}")
+        ext = folder_format(folder)
+        raise FileNotFoundError(f"{folder} has no {', '.join(n + ext for n in missing)}"
+                                + ("" if os.listdir(folder) else " (the folder is empty)"))
     return meta
 
 
@@ -450,3 +478,461 @@ def load_adam(path: str, optimizer) -> bool:
         return False
     optimizer.load_state_dict(sd)
     return True
+
+
+# ------------------------------------------------ the JAX package's .ckpt
+
+class _NoGlobals(pickle.Unpickler):
+    """A JAX ``.ckpt`` payload holds only dicts, str, bytes, ints and bools:
+    a file that names any global is refused, so reading one runs no code."""
+
+    def find_class(self, module, name):
+        raise pickle.UnpicklingError(f"it names the global {module}.{name}")
+
+
+def load_module(path: str) -> Tuple[Any, Dict[str, Any]]:
+    """One JAX ``.ckpt`` file (``ssde_tpu/checkpoint.py:37-41``): (its params
+    tree of numpy arrays, its ``extra`` dict with ``batch_stats`` still
+    msgpack bytes). A file that is not one raises ``ValueError`` naming it."""
+    try:
+        with open(path, "rb") as f:
+            payload = _NoGlobals(f).load()
+        if not isinstance(payload, dict) or not isinstance(payload.get("params"), bytes):
+            raise ValueError("not a dict with 'params' bytes")
+        tree = msgpack_restore(payload["params"])
+    except (pickle.UnpicklingError, EOFError, ValueError) as e:
+        raise ValueError(f"{path} is not a JAX .ckpt file: {e}") from e
+    return tree, dict(payload.get("extra") or {})
+
+
+def save_module(path: str, params, extra: Optional[dict] = None) -> None:
+    """``ssde_tpu/checkpoint.py:30-34``: ``params`` (nested dicts of numpy
+    arrays) as flax msgpack bytes beside ``extra``, pickled."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    payload = {"params": msgpack_serialize(params), "extra": extra or {}}
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+
+
+def save_checkpoint(folder: str, params: Dict[str, Any], batch_stats: Dict[str, Any],
+                    opt_state=None, *, height: int, width: int,
+                    use_stereo: bool = False) -> None:
+    """``ssde_tpu/checkpoint.py:44-56``: ``<name>.ckpt`` per entry of
+    ``params`` with its ``batch_stats`` (the encoder also with ``height``,
+    ``width`` and ``use_stereo``), and ``opt_state`` as ``adam.ckpt``. Trees
+    of numpy arrays (:func:`flax_state` gives them for the port's modules)."""
+    os.makedirs(folder, exist_ok=True)
+    for name, p in params.items():
+        extra = {"batch_stats": msgpack_serialize(batch_stats.get(name, {}))}
+        if name == "encoder":
+            extra.update({"height": int(height), "width": int(width),
+                          "use_stereo": bool(use_stereo)})
+        save_module(os.path.join(folder, f"{name}.ckpt"), p, extra)
+    if opt_state is not None:
+        save_module(os.path.join(folder, "adam.ckpt"), opt_state)
+
+
+def _module_from_flax(name: str, module: torch.nn.Module, params, stats) -> StateDict:
+    """The state_dict of the JAX tree (``params``, ``batch_stats``) of
+    ``models.<name>``, by the converter its module needs."""
+    from .models import PoseCNN, ResnetEncoderAttention
+
+    if name in ("encoder", "pose_encoder"):
+        if isinstance(module, ResnetEncoderAttention):
+            return attention_encoder_from_flax(params, stats)
+        return encoder_from_flax(params, stats)
+    if name in ("depth", "predictive_mask"):
+        return depth_from_flax(params, module.scales)
+    if name == "pose" and isinstance(module, PoseCNN):
+        return pose_cnn_from_flax(params)
+    if name == "dpt":
+        return dpt_from_flax(params, stats)
+    convert = {"pose": pose_decoder_from_flax, "gru": gru_from_flax, "head": head_from_flax,
+               "fusion": fusion_from_flax}
+    if name not in convert:
+        raise KeyError(f"no converter for a module named {name!r}")
+    return convert[name](params)
+
+
+def read_ckpt_folder(folder: str, models, names: Sequence[str] = MODULE_NAMES
+                     ) -> Tuple[Dict[str, int], List[str]]:
+    """:func:`load_folder` for the JAX package's ``.ckpt`` folder: each of
+    ``names`` that the bundle has and the folder holds, its params and
+    ``extra["batch_stats"]`` through its module's converter, loaded strictly
+    (a missing file is skipped). Returns (the encoder's ``height``/``width``/
+    ``use_stereo``, the names loaded)."""
+    meta: Dict[str, int] = {}
+    loaded = []
+    for name in names:
+        module = getattr(models, name, None)
+        path = os.path.join(folder, f"{name}.ckpt")
+        if module is None or not os.path.exists(path):
+            continue
+        params, extra = load_module(path)
+        stats = msgpack_restore(extra["batch_stats"]) if "batch_stats" in extra else {}
+        try:
+            sd = _module_from_flax(name, module, params, stats)
+            _load_module_sd(name, module, sd)
+        except (KeyError, RuntimeError) as e:
+            raise type(e)(f"{path} does not fit the {name} module: {e}") from e
+        meta.update(_ckpt_meta(extra))
+        loaded.append(name)
+    return meta, loaded
+
+
+def read_meta(folder: str) -> Dict[str, int]:
+    """The ``height``/``width``/``use_stereo`` that the folder's encoder file
+    carries (``encoder.pth`` or, in a ``.ckpt`` folder, ``encoder.ckpt``'s
+    ``extra``); {} where there is none."""
+    if folder_format(folder) == ".pth":
+        path = os.path.join(folder, "encoder.pth")
+        return read_module(path)[1] if os.path.exists(path) else {}
+    path = os.path.join(folder, "encoder.ckpt")
+    if not os.path.exists(path):
+        return {}
+    return _ckpt_meta(load_module(path)[1])
+
+
+def _ckpt_meta(extra: Mapping) -> Dict[str, int]:
+    return {k: int(extra[k]) for k in ENCODER_META if k in extra}
+
+
+# ----------------------------------------------------------- adam.ckpt
+
+def _stats_like(params):
+    """A batch_stats tree for a moments tree: each BatchNorm node (a ``bn``
+    entry with ``scale``) gets ``mean``/``var`` placeholders, so the
+    converters that read statistics take a tree of moments; the statistics
+    they give are dropped."""
+    if not isinstance(params, Mapping):
+        return {}
+    out = {}
+    for k, v in params.items():
+        if k == "bn" and isinstance(v, Mapping) and "scale" in v:
+            out[k] = {"mean": v["scale"], "var": v["scale"]}
+        elif isinstance(v, Mapping):
+            out[k] = _stats_like(v)
+    return out
+
+
+def _bundle_modules(models):
+    return [(n, getattr(models, n, None)) for n in MODULE_NAMES
+            if getattr(models, n, None) is not None]
+
+
+def _adam_moments(tree, models, optimizer):
+    """(count, {id(parameter): (exp_avg, exp_avg_sq)}) of every parameter the
+    optimizer trains, from a JAX ``create_optimizer`` state
+    (``ssde_tpu/train/state.py:145-165``: ``{"0": {}, "1": {"0": {"count",
+    "mu", "nu"}, "1": {"count"}}, "2": {}}``, ``mu`` and ``nu`` mirroring the
+    params tree). A layout that does not fit raises ``ValueError`` saying why."""
+    try:
+        adam, sched = tree["1"]["0"], tree["1"]["1"]
+        count, mu, nu = int(adam["count"]), adam["mu"], adam["nu"]
+        sched_count = int(sched["count"])
+    except (KeyError, TypeError, ValueError):
+        raise ValueError("not the layout of create_optimizer's optax.adam chain") from None
+    if sched_count != count:
+        raise ValueError(f"the schedule's count {sched_count} is not Adam's {count}")
+    if not isinstance(mu, Mapping) or not isinstance(nu, Mapping):
+        raise ValueError("mu and nu are not trees of modules (SSDE_FUSED_ADAM's raveled state?)")
+    moments, names = {}, {}
+    for name, module in _bundle_modules(models):
+        names.update({id(p): f"{name}.{k}" for k, p in module.named_parameters()})
+        if name not in mu or name not in nu:
+            continue
+        try:
+            m, v = (_module_from_flax(name, module, t[name], _stats_like(t[name]))
+                    for t in (mu, nu))
+        except (KeyError, TypeError, IndexError) as e:
+            raise ValueError(f"the moments of {name} do not fit its module ({e})") from None
+        moments.update({id(p): (m[k], v[k]) for k, p in module.named_parameters()
+                        if k in m and k in v})
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if id(p) not in moments:
+                raise ValueError(f"no moments for {names.get(id(p), 'a parameter')}")
+            shape = tuple(moments[id(p)][0].shape)
+            if shape != tuple(p.shape):
+                raise ValueError(f"moments of shape {shape} for {names.get(id(p))} "
+                                 f"{tuple(p.shape)}")
+    return count, moments
+
+
+def load_adam_ckpt(path: str, models, optimizer) -> Optional[int]:
+    """Load a JAX ``adam.ckpt`` into the port's Adam: each moment onto the
+    parameter of the same module and name, through its parameter's
+    converter (transposes, ``h0``/``c0``), and every parameter's ``step`` set
+    to the state's ``count``. Returns the count, or None, after a warning,
+    when the layout does not fit (a module missing from the tree, the raveled
+    ``FusedAdamState``, a shape): the optimizer keeps fresh moments then, as
+    ``ssde_tpu/checkpoint.py:85-99`` does."""
+    tree, _ = load_module(path)
+    try:
+        count, moments = _adam_moments(tree, models, optimizer)
+    except ValueError as e:
+        warnings.warn(f"{path} does not match the optimizer ({e}); "
+                      "optimizer state freshly initialized")
+        return None
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            m, v = moments[id(p)]
+            optimizer.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": m.to(p.device, p.dtype), "exp_avg_sq": v.to(p.device, p.dtype)}
+    return count
+
+
+# -------------------------------- the JAX converters (port state -> JAX tree)
+# Copies of ``ssde_tpu/checkpoint.py``'s torch -> flax converters (:112-397),
+# so that the port writes a ``.ckpt`` folder without JAX; tests hold each to
+# its original on the same inputs.
+
+def _conv_kernel(w: np.ndarray) -> np.ndarray:
+    """(O, I, kh, kw) -> (kh, kw, I, O)."""
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+def _set(tree: dict, path: str, value):
+    keys = path.split("/")
+    node = tree
+    for k in keys[:-1]:
+        node = node.setdefault(k, {})
+    node[keys[-1]] = value
+
+
+def _bn_assign(params, stats, base, field, v):
+    if field == "weight":
+        _set(params, f"{base}/scale", v)
+    elif field == "bias":
+        _set(params, f"{base}/bias", v)
+    elif field == "running_mean":
+        _set(stats, f"{base}/mean", v)
+    elif field == "running_var":
+        _set(stats, f"{base}/var", v)
+    # num_batches_tracked: dropped
+
+
+def convert_resnet_encoder(sd: Dict[str, np.ndarray]):
+    """ResnetEncoder state_dict -> (params, batch_stats, meta) (:132-172):
+    ``encoder.`` or bare torchvision keys, ``fc.`` dropped, the embedded
+    height/width/use_stereo returned as meta."""
+    params: dict = {}
+    stats: dict = {}
+    meta = {}
+    for key, v in sd.items():
+        if key in ENCODER_META:
+            meta[key] = v
+            continue
+        k = key[len("encoder."):] if key.startswith("encoder.") else key
+        if k.startswith("fc."):
+            continue
+        parts = k.split(".")
+        if parts[0] in ("conv1", "bn1"):
+            if parts[0] == "conv1":
+                _set(params, "conv1/kernel", _conv_kernel(v))
+            else:
+                _bn_assign(params, stats, "bn1/bn", parts[1], v)
+        elif parts[0].startswith("layer"):
+            name = f"{parts[0]}_{parts[1]}"
+            sub = parts[2]
+            if sub == "downsample":
+                if parts[3] == "0":
+                    _set(params, f"{name}/downsample_conv/kernel", _conv_kernel(v))
+                else:
+                    _bn_assign(params, stats, f"{name}/downsample_bn/bn", parts[4], v)
+            elif sub.startswith("conv"):
+                _set(params, f"{name}/{sub}/kernel", _conv_kernel(v))
+            elif sub.startswith("bn"):
+                _bn_assign(params, stats, f"{name}/{sub}/bn", parts[3], v)
+    return params, stats, meta
+
+
+def convert_depth_decoder(sd: Dict[str, np.ndarray], scales=(0, 1, 2, 3)):
+    """DepthDecoder state_dict (``decoder.N``, :func:`module_order`) -> params
+    (:187-213)."""
+    order = module_order(scales)
+    params: dict = {}
+    for key, v in sd.items():
+        parts = key.split(".")
+        if parts[0] != "decoder":
+            raise KeyError(f"unexpected depth decoder key {key!r}")
+        name = order[int(parts[1])]
+        field = "kernel" if parts[-1] == "weight" else "bias"
+        value = _conv_kernel(v) if parts[-1] == "weight" else v
+        if name.startswith("upconv"):
+            _set(params, f"{name}/conv/conv/{field}", value)
+        else:
+            _set(params, f"{name}/conv/{field}", value)
+    return params
+
+
+def _convert_layers(sd: Dict[str, np.ndarray], name_of) -> dict:
+    """Convs whose key's first parts ``name_of`` maps to a tree node
+    (``kernel`` HWIO, ``bias``)."""
+    params: dict = {}
+    for key, v in sd.items():
+        parts = key.split(".")
+        field = "kernel" if parts[-1] == "weight" else "bias"
+        value = _conv_kernel(v) if parts[-1] == "weight" else v
+        _set(params, f"{name_of(parts)}/{field}", value)
+    return params
+
+
+def convert_pose_decoder(sd: Dict[str, np.ndarray]):
+    """PoseDecoder state_dict -> params (:216-226; ``net.0`` squeeze,
+    ``net.1``..``net.3`` pose_0..pose_2)."""
+    names = {"0": "squeeze", "1": "pose_0", "2": "pose_1", "3": "pose_2"}
+    return _convert_layers(sd, lambda parts: names[parts[1]])
+
+
+def convert_pose_cnn(sd: Dict[str, np.ndarray]):
+    """PoseCNN state_dict -> params (:229-240)."""
+    return _convert_layers(sd, lambda parts: f"conv_{parts[1]}" if parts[0] == "net"
+                           else "pose_conv")
+
+
+def _convert_attention_conv(sd, prefix, out, out_prefix):
+    """AttentionConv params -> its flax tree (:279-296); rel_h (C/2,1,1,k,1)
+    or (1,1,1,k,1) -> (C/2, k) or (k,)."""
+    for name in ("key_conv", "query_conv", "value_conv"):
+        w = sd.get(f"{prefix}.{name}.weight")
+        if w is not None:
+            _set(out, f"{out_prefix}/{name}/kernel", _conv_kernel(w))
+        b = sd.get(f"{prefix}.{name}.bias")
+        if b is not None:
+            _set(out, f"{out_prefix}/{name}/bias", b)
+    for rel in ("rel_h", "rel_w"):
+        r = sd.get(f"{prefix}.{rel}")
+        if r is not None:
+            r = np.asarray(r)
+            r = r.reshape(r.shape[0], -1) if r.shape[0] > 1 else r.reshape(-1)
+            _set(out, f"{out_prefix}/{rel}", r)
+
+
+def _convert_conv(sd, prefix, out, out_prefix):
+    """``prefix.weight``/``.bias`` -> ``out_prefix/kernel``/``bias``."""
+    _set(out, f"{out_prefix}/kernel", _conv_kernel(sd[f"{prefix}.weight"]))
+    _set(out, f"{out_prefix}/bias", sd[f"{prefix}.bias"])
+
+
+def _convert_rcu(sd, prefix, out, out_prefix):
+    """ResidualConvUnit or ResidualAttentionUnit under ``prefix`` (:299-309)."""
+    if f"{prefix}.conv1.weight" in sd:
+        for i in (1, 2):
+            _convert_conv(sd, f"{prefix}.conv{i}", out, f"{out_prefix}/conv{i}")
+    else:
+        for i in (1, 2):
+            _convert_attention_conv(sd, f"{prefix}.atten{i}", out, f"{out_prefix}/atten{i}")
+
+
+def _convert_units(sd, prefix, out, out_prefix):
+    """A fusion block's ``resConfUnit1..3`` under ``prefix`` (a dot-ended
+    prefix or ''), and its ``conv3x3.conv`` head."""
+    for rcu in ("resConfUnit1", "resConfUnit2", "resConfUnit3"):
+        if any(k.startswith(f"{prefix}{rcu}.") for k in sd):
+            _convert_rcu(sd, f"{prefix}{rcu}", out, f"{out_prefix}{rcu}")
+    if f"{prefix}conv3x3.conv.weight" in sd:
+        _convert_conv(sd, f"{prefix}conv3x3.conv", out, f"{out_prefix}conv3x3/conv")
+
+
+def convert_gru_blocks(sd: Dict[str, np.ndarray], cell: str = "gru"):
+    """ConvGRUBlocks state_dict -> params (:312-347): ``cgru_{s}.h0_layer1``
+    (1, C, H, W) -> ``h0`` (1, H, W, C) (``c0`` alike), the GRU or LSTM cell's
+    convs, the ``conv3x3_{s}`` heads and the ``fusion_{s}`` blocks."""
+    params: dict = {}
+    for key, v in sd.items():
+        parts = key.split(".")
+        if parts[0].startswith("cgru_"):
+            unit = parts[0]
+            if parts[1] in ("h0_layer1", "c0_layer1"):
+                name = "h0" if parts[1] == "h0_layer1" else "c0"
+                _set(params, f"{unit}/{name}", np.transpose(v, (0, 2, 3, 1)))
+            elif parts[1] in ("cgru_1", "clstm_1"):
+                field = "kernel" if parts[-1] == "weight" else "bias"
+                value = _conv_kernel(v) if parts[-1] == "weight" else v
+                _set(params, f"{unit}/cell/{parts[2]}/{field}", value)
+        elif parts[0].startswith("conv3x3_"):
+            field = "kernel" if parts[-1] == "weight" else "bias"
+            value = _conv_kernel(v) if parts[-1] == "weight" else v
+            _set(params, f"{parts[0]}/conv/{field}", value)
+    for fp in sorted({k.split(".")[0] for k in sd if k.startswith("fusion_")}):
+        _convert_units(sd, f"{fp}.", params, f"{fp}/")
+    return params
+
+
+def convert_head(sd: Dict[str, np.ndarray]):
+    """Head state_dict -> params (:350-358)."""
+    return _convert_layers(sd, lambda parts: f"{parts[0]}/conv")
+
+
+def convert_fusion_v2(sd: Dict[str, np.ndarray]):
+    """Fusion / Fusion_v3 state_dict (``fusion_block_{n}``) or a bare
+    FeatureFusionBlock's (the scale-loop block, at the root) -> params
+    (:361-397)."""
+    params: dict = {}
+    blocks = sorted({k.split(".")[0] for k in sd if k.startswith("fusion_block")})
+    if not blocks and any(k.startswith("resConfUnit") for k in sd):
+        _convert_units(sd, "", params, "")
+        return params
+    for bp in blocks:
+        _convert_units(sd, f"{bp}.", params, f"{bp}/")
+        for conv in ("conv_init", "conv_1"):
+            if f"{bp}.{conv}.weight" in sd:
+                _convert_conv(sd, f"{bp}.{conv}", params, f"{bp}/{conv}")
+        for ups in ("upscale", "upscale_1", "upscale_2"):
+            if f"{bp}.{ups}.conv.weight" in sd:
+                _convert_conv(sd, f"{bp}.{ups}.conv", params, f"{bp}/{ups}/conv")
+    return params
+
+
+def _module_to_flax(name: str, module: torch.nn.Module, sd: Dict[str, np.ndarray],
+                    pre_disp: bool):
+    """(params, batch_stats) of ``models.<name>`` from a numpy state_dict
+    ``sd`` (of the module's tensors, or of its parameters' moments), by the
+    copied converter; under ``pre_disp`` the depth decoder's dispconv heads
+    are left out, as the JAX tree has none."""
+    from .models import PoseCNN, ResnetEncoderAttention
+    from .models.dpt import DPTDepthModel
+
+    if isinstance(module, (ResnetEncoderAttention, DPTDepthModel)):
+        raise NotImplementedError(f"{type(module).__name__} has no JAX converter to copy")
+    if name in ("encoder", "pose_encoder"):
+        return convert_resnet_encoder(sd)[:2]
+    if name in ("depth", "predictive_mask"):
+        if name == "depth" and pre_disp:
+            heads = {f"decoder.{i}." for i, n in enumerate(module_order(module.scales))
+                     if n.startswith("dispconv")}
+            sd = {k: v for k, v in sd.items() if not any(k.startswith(h) for h in heads)}
+        return convert_depth_decoder(sd, module.scales), {}
+    if name == "pose":
+        return (convert_pose_cnn if isinstance(module, PoseCNN) else convert_pose_decoder)(sd), {}
+    convert = {"gru": convert_gru_blocks, "head": convert_head, "fusion": convert_fusion_v2}
+    if name not in convert:
+        raise KeyError(f"no converter for a module named {name!r}")
+    return convert[name](sd), {}
+
+
+def flax_state(models, optimizer=None, step: int = 0):
+    """The JAX trees of a bundle, for :func:`save_checkpoint`: (params,
+    batch_stats) by module name and, with ``optimizer`` (the port's Adam),
+    the optax state of ``create_optimizer`` with its moments and ``step``
+    as the count (a parameter Adam has not stepped yet gets zero moments).
+    DPT and the attention encoder have no JAX converter and raise."""
+    pre_disp = bool(getattr(models, "pre_disp", False))
+    params, stats, mu, nu = {}, {}, {}, {}
+    for name, module in _bundle_modules(models):
+        sd = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
+        params[name], stats[name] = _module_to_flax(name, module, sd, pre_disp)
+        if optimizer is not None:
+            for tree, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+                moments = {k: (optimizer.state[p][key] if p in optimizer.state
+                               else torch.zeros_like(p)).detach().float().cpu().numpy()
+                           for k, p in module.named_parameters()}
+                tree[name] = _module_to_flax(name, module, moments, pre_disp)[0]
+    if optimizer is None:
+        return params, stats, None
+    count = np.asarray(step, np.int32)
+    opt_state = {"0": {}, "1": {"0": {"count": count, "mu": mu, "nu": nu},
+                                "1": {"count": count}}, "2": {}}
+    return params, stats, opt_state

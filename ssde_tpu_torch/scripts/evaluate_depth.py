@@ -9,7 +9,7 @@ export. Outputs (``disps_<split>_split.npy``, ``benchmark_predictions/``)
 go into --load_weights_folder, as in the original.
 
 Run: python -m ssde_tpu_torch.scripts.evaluate_depth --eval_mono
-       --load_weights_folder <folder of encoder.pth, depth.pth>
+       --load_weights_folder <folder of encoder.pth, depth.pth, or of their .ckpt>
        --data_path <KITTI raw> [--post_process] [--no_cuda]
 
 The ground truth is ``gt_depths.npz`` beside the split's test list

@@ -10,7 +10,7 @@ fusion stack of ``--fusion_variant`` (``pyramid``, ``v3``, the default, or
 and the fused scale-0 disparity is scored with the eigen protocol.
 
 Run: python -m ssde_tpu_torch.scripts.evaluate_depth_fusion --fusion_variant v3
-       --load_weights_folder <folder of encoder.pth, depth.pth, fusion.pth>
+       --load_weights_folder <folder of encoder.pth, depth.pth, fusion.pth, or .ckpt>
        --data_path <KITTI raw> [--no_cuda]
 
 The ground truth is ``gt_depths.npz`` beside the split's test list

@@ -12,9 +12,10 @@ Protocols (selected with --protocol):
              folder's encoder.pth and depth.pth
 
 Run: python -m ssde_tpu_torch.scripts.evaluate_depth_gru_fusion
-       --gru_version v5 --load_weights_folder <folder of .pth files> ...
+       --gru_version v5 --load_weights_folder <folder> ...
 (every ``--gru_version``, v1-v10, v6 and v2_wo_att; the folder holds
-encoder.pth, depth.pth and gru.pth, and head.pth for v4, v6 and v7).
+encoder.pth, depth.pth and gru.pth, and head.pth for v4, v6 and v7, or the
+JAX package's .ckpt files of the same modules; a missing one raises).
 The bucketed single/warm-up loop and the scene loop are functions
 (:func:`predict_bucketed`, :func:`predict_scenes`) that other programs call.
 """
@@ -48,7 +49,9 @@ def build_evaluator(opt: Options, device="cuda", seed: int = 0) -> GRUStreamEval
     """float32 models (as the JAX script forces, :38-39), initialised from
     ``seed`` and then loaded from ``opt.load_weights_folder`` if it is set
     (:func:`main` requires it; callers that build an evaluator themselves
-    may run the seeded weights).
+    may run the seeded weights). The folder, ``.pth`` or ``.ckpt``, must hold
+    every module the version runs (``checkpoint.load_reference_folder``):
+    a missing folder or file raises and names it.
 
     Like the JAX script's global matmul-precision switch, this turns TF32
     off for cuDNN convolutions and cuBLAS matmuls process-wide, so that
@@ -132,8 +135,8 @@ def main(argv=None):
     opt = MonodepthOptions().parse(remaining)
     if not opt.load_weights_folder:
         raise ValueError("--load_weights_folder is required: the folder of the trained "
-                         "encoder.pth, depth.pth and gru.pth (and head.pth for v4, v6 "
-                         "and v7) to evaluate")
+                         "encoder, depth and gru (and head for v4, v6 and v7), .pth or "
+                         ".ckpt, to evaluate")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")
     if args.protocol == "mdp":

@@ -9,7 +9,7 @@ over 5-frame tracks. ``poses.npy`` is written into --load_weights_folder,
 as in the original.
 
 Run: python -m ssde_tpu_torch.scripts.evaluate_pose --eval_split odom_9
-       --load_weights_folder <folder of pose_encoder.pth, pose.pth>
+       --load_weights_folder <folder of pose_encoder.pth, pose.pth, or of their .ckpt>
        --data_path <KITTI odometry> [--no_cuda]
 
 float32 with TF32 off, on the card unless --no_cuda asks for the CPU.

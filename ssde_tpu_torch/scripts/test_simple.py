@@ -3,14 +3,16 @@
 ``scripts/test_simple.py``, reference test_simple.py), offline only.
 
 Reads the feed height and width embedded in ``encoder.pth`` (reference
-test_simple.py:76-77) and writes, next to each input image,
+test_simple.py:76-77), or in ``encoder.ckpt``'s ``extra`` in a folder of the
+JAX package's ``.ckpt`` files, and writes, next to each input image,
 ``<name>_disp.npy`` (the scaled disparity at depths 0.1 to 100, (1, H, W, 1)
 as the JAX script writes it) and ``<name>_disp.jpeg`` (the magma colormap of
 the disparity resized bilinearly to the input's size; skipped, with a
 message, where matplotlib is not installed).
 
 Run: python -m ssde_tpu_torch.scripts.test_simple --image_path <file or folder>
-       --model_path <folder of encoder.pth, depth.pth> [--ext jpg] [--no_cuda]
+       --model_path <folder of encoder.pth, depth.pth, or of their .ckpt>
+       [--ext jpg] [--no_cuda]
 
 The model-zoo download of ``--model_name`` is not ported: the folder
 ``models/<name>`` must exist. float32 with TF32 off, on the card unless
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 from PIL import Image
 
-from ..checkpoint import load_eval_folder, read_module
+from ..checkpoint import load_eval_folder, read_meta
 from ..config import Options
 from ..io import colormap_disparity
 from ..ops.geometry import disp_to_depth
@@ -44,7 +46,7 @@ def parse_args(argv=None):
     parser.add_argument("--image_path", type=str, required=True,
                         help="path to a test image or folder of images")
     parser.add_argument("--model_path", type=str, default=None,
-                        help="path to a checkpoint folder (reference .pth)")
+                        help="path to a checkpoint folder (reference .pth or JAX .ckpt)")
     parser.add_argument("--model_name", type=str, default=None,
                         help="name of a models/<name> checkpoint folder")
     parser.add_argument("--ext", type=str, default="jpg")
@@ -60,9 +62,8 @@ def test_simple(args) -> List[Tuple[str, float]]:
     device = eval_device(args)
     folder = args.model_path or os.path.join("models", args.model_name)
     feed_height, feed_width = 192, 640
-    enc = os.path.join(folder, "encoder.pth")
-    if os.path.exists(enc):
-        meta = read_module(enc)[1]
+    if os.path.isdir(folder):  # encoder.pth or encoder.ckpt carries the feed size
+        meta = read_meta(folder)
         feed_height = int(meta.get("height", feed_height))
         feed_width = int(meta.get("width", feed_width))
     opt = Options(height=feed_height, width=feed_width, num_layers=args.num_layers,

@@ -15,7 +15,7 @@ on a KITTI raw or odometry tree (``--dataset``), or on
 ``--synthetic_data``. Every ``--save_frequency`` epochs it writes
 ``<log_dir>/<model_name>/models/weights_<epoch>/`` (one ``.pth`` per
 module and ``adam.pth``); ``--load_weights_folder`` resumes from such a
-folder.
+folder, or from the JAX package's folder of ``.ckpt`` files and ``adam.ckpt``.
 """
 
 from __future__ import annotations

@@ -412,16 +412,27 @@ class TrainerBase:
     def load_model(self) -> None:
         """``--models_to_load`` from ``--load_weights_folder`` (a missing
         file is skipped, a mismatched one raises), then ``adam.pth`` where
-        it is present and fits; the schedule resumes from its step count."""
+        it is present and fits; the schedule resumes from its step count. A
+        folder without ``.pth`` files is the JAX package's ``.ckpt`` folder
+        (``ssde_tpu/train/trainer.py:360-383``): its modules, and
+        ``adam.ckpt``'s moments with the step at its count."""
         folder = os.path.expanduser(self.opt.load_weights_folder)
         if not os.path.isdir(folder):
             raise FileNotFoundError(f"Cannot find folder {folder}")
         print(f"loading model from folder {folder}")
         _, loaded = checkpoint.load_folder(folder, self.models, self._models_to_load())
         print(f"loaded {loaded}")
-        adam = os.path.join(folder, "adam.pth")
+        ext = checkpoint.folder_format(folder)
+        adam = os.path.join(folder, "adam" + ext)
         if not os.path.isfile(adam):
             print("Cannot find Adam weights so Adam is randomly initialized")
+        elif ext == ".ckpt":
+            count = checkpoint.load_adam_ckpt(adam, self.models, self.state.optimizer)
+            if count is None:
+                print(f"Adam moments not loaded from {adam}: Adam is randomly initialized")
+            else:
+                self.state.step = count
+                print(f"Adam moments loaded from {adam} at step {count}")
         elif checkpoint.load_adam(adam, self.state.optimizer):
             steps = [int(s["step"]) for s in self.state.optimizer.state.values() if "step" in s]
             self.state.step = max(steps, default=0)

@@ -169,7 +169,7 @@ def test_load_eval_folder_refuses_what_it_cannot_load(models, tmp_path):
     native.mkdir()
     for name in ("encoder", "depth", "adam"):
         (native / f"{name}.ckpt").write_bytes(b"\x80")
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    with pytest.raises(ValueError, match=r"encoder\.ckpt is not a JAX \.ckpt file"):
         checkpoint.load_eval_folder(str(native), models, ("encoder", "depth"))
     folder = tmp_path / "pth"
     checkpoint.save_folder(str(folder), models, height=64, width=128)

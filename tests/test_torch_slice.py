@@ -180,7 +180,7 @@ def test_cpu_path_never_launches_the_kernel(evaluators, frames):
 _NO_JAX = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "ssde_tpu")  # not ssde_tpu_torch
+    BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "ssde_tpu")  # not ssde_tpu_torch
 
     class BlockJax(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -210,6 +210,25 @@ _NO_JAX = textwrap.dedent("""
     trainer = build_trainer(opt, "cpu")
     batch = to_device(next(iter(trainer.train_loader)), "cpu")
     assert float(train_step(trainer.models, trainer.state, batch)["loss"]) > 0
+
+    # that trainer as the JAX package's .ckpt folder (flax msgpack, adam.ckpt),
+    # written and resumed from without flax
+    import tempfile
+    import torch
+    from ssde_tpu_torch import checkpoint
+    native = tempfile.mkdtemp()
+    checkpoint.save_checkpoint(native, *checkpoint.flax_state(
+        trainer.models, trainer.state.optimizer, trainer.state.step), height=32, width=64)
+    opt.load_weights_folder = native
+    resumed = build_trainer(opt, "cpu")
+    assert resumed.state.step == trainer.state.step == 1
+    for a, b in zip(trainer.models.parameters(), resumed.models.parameters()):
+        assert torch.equal(a, b)
+        sa, sb = trainer.state.optimizer.state[a], resumed.state.optimizer.state[b]
+        assert all(torch.equal(sa[k], sb[k]) for k in ("step", "exp_avg", "exp_avg_sq"))
+    del resumed
+    import shutil
+    shutil.rmtree(native)  # ~300 MB of weights and moments
 
     # the DPT trainer (train_dpt's default --model) and one step of it
     import ssde_tpu_torch.train.steps_dpt as steps_dpt
