@@ -22,10 +22,11 @@ Phases, each fatal on failure:
              CPU disparity over 4 streamed frames
   5. times   kernel vs twin per conv shape, streaming latency at B=1,
              warm-up protocol throughput at B=8 (CUDA events / host clock)
-  6. mono kernels  the family warp (#7) and the photometric error forward
-             and backward (#5, #6) against their plain versions at the mono
-             slice's shapes (640x192, B=12 and 48, and B=16 of phase 26's
-             bench_loader --fed; G=10B) and ragged ones;
+  6. mono kernels  the family warp (#7: its forward and its grid-gradient
+             kernel, the latter twice and bit-identical) and the photometric
+             error forward and backward (#5, #6) against their plain
+             versions at the mono slice's shapes (640x192, B=12 and 48, and
+             B=16 of phase 26's bench_loader --fed; G=10B) and ragged ones;
              the photometric kernels also at the edges of their strips and
              bands, at W = 1, 2, 3 (mod 4) and at G = 240
   7. mono slice    the mono trainer built by the port's entry point at the
@@ -36,8 +37,11 @@ Phases, each fatal on failure:
              with the same weights and batch (networks float64, the
              kernels' part float32, the automask argmin of a float64 CPU
              run): the losses, every gradient
-  9. mono times    train step ms and samples/s at B=12 and 48, each new
-             kernel against its plain version, the device idle share; the
+  9. mono times    train step ms, samples/s and peak memory at B=12 and 48,
+             each new kernel against its plain version, the device idle
+             share; the warp's forward, backward and the pair of them also
+             beside F.grid_sample and aten's grid_sampler_2d_backward (the
+             grid alone), and the host's microseconds a call; the
              photometric kernels also at G = 240 and 1200 beside their bounds
  10. gru kernels   the conv3x3 backward (the forward kernel as dx, the
              weight-gradient kernel #2, db) against autograd of the plain
@@ -158,9 +162,10 @@ Phases, each fatal on failure:
              reloaded with no --models_to_load bit-identical, the loader's
              items/s (4 JPEGs an item)
  24. dpt train     train_dpt for the models it did not train before: (a) #7
-             at S = 1 and #5/#6 at the DPT step's G = 4B = 48 (B=12,
-             640x192) against their plain versions (phase 6's tolerances),
-             timed beside their bounds and F.grid_sample; (b) train_dpt's
+             (forward and backward) at S = 1 and #5/#6 at the DPT step's
+             G = 4B = 48 (B=12, 640x192) against their plain versions (phase
+             6's tolerances), timed beside their bounds and, for the warp,
+             phase 9's library calls; (b) train_dpt's
              main() with no --model, the DPT-hybrid (ViT-B/16 on a
              ResNet-50 stem, 118 M parameters, frames [0, -1, 1], scale 0),
              and (c) with --model rn_encoder_with_attention, each at the
@@ -181,7 +186,9 @@ Phases, each fatal on failure:
              S = 1 on the --v1_multiscale sources (320x96, 160x48, 80x24),
              and #5/#6 at the MS step's G = 180 and at --v1_multiscale's
              G = 48 at those sizes, against their plain versions (phase 6's
-             tolerances), timed beside their bounds; (b) train_dpt.main()
+             tolerances), timed beside their bounds (the warp's forward,
+             backward and pair beside phase 9's library calls, and its host
+             time a call at 80x24); (b) train_dpt.main()
              --model monodepth2 with --use_stereo (MS, frames 0 -1 1) and
              --use_stereo --frame_ids 0 (S, no pose network) at the Options
              defaults (B=12, bf16, synthetic data, an epoch of 8 steps and
@@ -254,7 +261,10 @@ version's (conv3x3_fwd: float32 serving at B=1, and under bf16_b8_* and
 f32_b8_* its bf16 and float32 bodies at a B=8 frame-step; conv3x3_dx and
 conv3x3_dw: bf16, and float32 under f32_b8_*; attend3_fwd and attend3_bwd:
 a B=8 bf16 frame-step, and #3's float32 serving frame-steps under f32_b8_*
-and f32_b1_*), the least
+and f32_b1_*; warp_family_fwd and warp_family_bwd: S=4 at B=12, and B=48
+under b48_*, the forward and backward in turn under pair_* of
+warp_family_bwd with the mono steps' peak memory, the host's microseconds
+a call under *host_us), the least
 time the card could take (``bound_ms``: the bytes the function must move
 over 3.35 TB/s or its operations over the peak rate for its type, the
 larger) and a PyTorch library call's time where one computes the same
@@ -528,8 +538,12 @@ def main() -> None:
     mono_card_vs_cpu(dev)
     times = mono_times(dev, card)
     mono_step_ms = times.pop("train_step_ms")
+    peak = times.pop("train_step_peak_gib")
+    pair = times.pop("warp_family_pair")
     for name, src, rep in (("warp_family_fwd", "ssde_tpu_torch/csrc/warp_family.cu",
                             "ssde_tpu/ops/pallas/warp_banded.py:64"),
+                           ("warp_family_bwd", "ssde_tpu_torch/csrc/warp_family.cu",
+                            "ssde_tpu/ops/pallas/warp_banded.py:64 (its residuals), :463"),
                            ("photometric_fwd", "ssde_tpu_torch/csrc/photometric.cu",
                             "ssde_tpu/ops/pallas/photometric.py:97"),
                            ("photometric_bwd", "ssde_tpu_torch/csrc/photometric.cu",
@@ -537,6 +551,9 @@ def main() -> None:
         kernels[name] = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                          "launches": launch_counts[name], "max_abs_err": errs[name],
                          **times[name]}
+    # the forward and backward in turn, and the mono steps' peak memory
+    kernels["warp_family_bwd"].update({f"pair_{k}": v for k, v in pair.items()},
+                                      **{f"mono_b{B}_step_peak_gib": v for B, v in peak.items()})
     errs = gru_kernels(dev)
     launch_counts = gru_slice(dev)
     gru_card_vs_cpu(dev)
@@ -594,8 +611,8 @@ def main() -> None:
         **{f"fusion_b8_f32_{label}_{k}": v
            for label, entry in fusion_times.items() for k, v in entry.items()})
     # phase 23's main path (the fusion trainers' runs) adds to the kernels of its step
-    for name in ("attend3_fwd", "attend3_bwd", "warp_family_fwd", "photometric_fwd",
-                 "photometric_bwd"):
+    for name in ("attend3_fwd", "attend3_bwd", "warp_family_fwd", "warp_family_bwd",
+                 "photometric_fwd", "photometric_bwd"):
         kernels[name]["launches"] += train_count[name]
         kernels[name]["fusion_train_launches"] = train_count[name]
     kernels["attend3_bwd"].update(
@@ -611,7 +628,7 @@ def main() -> None:
     # phase 24's main path (train_dpt's DPT and attention-encoder runs) adds to
     # the warp's and the photometric kernels' counts
     dpt_count, dpt_errs, dpt_times = dpt_training(dev, card)
-    for name in ("warp_family_fwd", "photometric_fwd", "photometric_bwd"):
+    for name in ("warp_family_fwd", "warp_family_bwd", "photometric_fwd", "photometric_bwd"):
         kernels[name]["launches"] += dpt_count[name]
         kernels[name]["dpt_train_launches"] = dpt_count[name]
         kernels[name]["dpt_max_abs_err"] = dpt_errs[name]
@@ -619,7 +636,7 @@ def main() -> None:
     # phase 25's main path (train_dpt's MS and S runs) adds to the warp's and
     # the photometric kernels' counts
     opt_count, opt_errs, opt_times, opt_step_ms = options_training(dev, card)
-    for name in ("warp_family_fwd", "photometric_fwd", "photometric_bwd"):
+    for name in ("warp_family_fwd", "warp_family_bwd", "photometric_fwd", "photometric_bwd"):
         kernels[name]["launches"] += opt_count[name]
         kernels[name]["options_train_launches"] = opt_count[name]
         kernels[name]["options_max_abs_err"] = opt_errs[name]
@@ -897,6 +914,99 @@ def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
+def _warp_errs(img, grids, cot):
+    """The family warp's kernels against their plain versions on one input:
+    (forward's abs error, grid gradient's error relative to its max, and
+    absolute, the kernel's output). The backward runs twice and must be
+    bit-identical (no atomics, a fixed channel order)."""
+    import torch
+
+    from ssde_tpu_torch.ops.warp import warp_family_bwd_reference, warp_family_reference
+    from ssde_tpu_torch.ops.warp_banded import warp_family_bwd, warp_family_fwd
+
+    with torch.no_grad():
+        out, dgrid = warp_family_fwd(img, grids), warp_family_bwd(img, grids, cot)
+        again = warp_family_bwd(img, grids, cot)
+        want, dwant = (warp_family_reference(img, grids)[0],
+                       warp_family_bwd_reference(img, grids, cot))
+    torch.cuda.synchronize()
+    if out.shape != want.shape or dgrid.shape != grids.shape or not torch.equal(dgrid, again):
+        fail(f"warp kernels: shapes {tuple(out.shape)}, {tuple(dgrid.shape)}, or two "
+             f"backward runs differ at grids {tuple(grids.shape)}")
+    return ((out - want).abs().max().item(), _rel(dgrid, dwant),
+            (dgrid - dwant).abs().max().item(), out)
+
+
+def warp_cost(S, B, C, h, w):
+    """(FLOPs, bytes) of the family warp's forward and backward at S grids of
+    B images of C x h x w, float32, each input read once and each output
+    written once; operations counted from the bodies: ~20 a pixel for the
+    coordinate, its window and masks, and a value's three lerps (~10,
+    forward) or its two residuals and their channel sums (~16, backward)."""
+    px, vals = S * B * h * w, S * B * C * h * w
+    img, grid = 4 * B * C * h * w, 8 * px
+    fwd = (20 * px + 10 * vals, img + grid + 4 * vals)
+    bwd = (22 * px + 16 * vals, img + 2 * grid + 4 * vals)
+    return {"warp_family_fwd": fwd, "warp_family_bwd": bwd,
+            "warp_family_pair": tuple(a + b for a, b in zip(fwd, bwd))}
+
+
+def host_us(fn, n=300):
+    """Host microseconds a call over ``n`` unsynchronised calls (the queue
+    is drained before and after, outside the clock)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def warp_times(img, grids, dout, card, label):
+    """The family warp's forward, backward and the pair of them, each kernel
+    beside its plain version (CUDA events, order plain, kernel, kernel,
+    plain), its bound and the library call of the same function, a yardstick
+    only: F.grid_sample border over the S grids (the image repeated outside
+    the timing) and aten's grid_sampler_2d_backward for the grid alone
+    (output_mask [False, True]). Returns {name: entry}."""
+    import torch
+
+    from ssde_tpu_torch.ops.warp import warp_family_bwd_reference, warp_family_reference
+    from ssde_tpu_torch.ops.warp_banded import warp_family_bwd, warp_family_fwd
+
+    S, B, h, w, _ = grids.shape
+    C = img.shape[1]
+    img_s, grids_s = img.repeat(S, 1, 1, 1), grids.flatten(0, 1)
+    fwd, bwd = (lambda: warp_family_fwd(img, grids)), (lambda: warp_family_bwd(img, grids, dout))
+    plain_fwd = lambda: warp_family_reference(img, grids)  # noqa: E731
+    plain_bwd = lambda: warp_family_bwd_reference(img, grids, dout)  # noqa: E731
+    lib_fwd = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+        img_s, grids_s, mode="bilinear", padding_mode="border", align_corners=False)
+    lib_bwd = lambda: torch.ops.aten.grid_sampler_2d_backward(  # noqa: E731
+        dout, img_s, grids_s, 0, 1, False, [False, True])
+    fns = {"warp_family_fwd": (fwd, plain_fwd, lib_fwd),
+           "warp_family_bwd": (bwd, plain_bwd, lib_bwd),
+           "warp_family_pair": (lambda: (fwd(), bwd()), lambda: (plain_fwd(), plain_bwd()),
+                                lambda: (lib_fwd(), lib_bwd()))}
+    cost = warp_cost(S, B, C, h, w)
+    times = {}
+    with torch.no_grad():
+        for name, (k, p, lib) in fns.items():
+            tp1, tk1, tk2, tp2 = cuda_ms(p), cuda_ms(k), cuda_ms(k), cuda_ms(p)
+            tl = cuda_ms(lib)
+            bms, by = bound(*cost[name], "float32")
+            times[name] = {"ms": (tk1 + tk2) / 2, "plain_ms": (tp1 + tp2) / 2, "bound_ms": bms,
+                           "bound_by": by, "library_ms": tl}
+            print(f"  {name} {label} S={S} B={B} {w}x{h}: kernel {times[name]['ms']:.4f} ms, "
+                  f"plain {times[name]['plain_ms']:.4f} ms, library {tl:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by}) [{card}]")
+    return times
+
+
 def mono_kernels(dev, card):
     """Phase 6: each new kernel against its plain version on the card."""
     import torch
@@ -904,11 +1014,10 @@ def mono_kernels(dev, card):
     from ssde_tpu_torch.ops.photometric import (BWD_BAND, BWD_STRIP, FWD_BAND, FWD_STRIP,
                                                 photometric_bwd, photometric_bwd_reference,
                                                 photometric_fwd, photometric_reference)
-    from ssde_tpu_torch.ops.warp import warp_family_reference
-    from ssde_tpu_torch.ops.warp_banded import grad_masks, warp_family_fwd
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    errs = {"warp_family_fwd": 0.0, "photometric_fwd": 0.0, "photometric_bwd": 0.0}
+    errs = dict.fromkeys(("warp_family_fwd", "warp_family_bwd", "photometric_fwd",
+                          "photometric_bwd"), 0.0)
     print(f"mono kernels vs plain versions: warp abs {TOL_WARP}, its grid gradient "
           f"{TOL_WARP} of max; photometric fwd abs {TOL_PHOTO}, bwd {TOL_PHOTO_BWD} of max")
     cases = [(MONO_B, H, W, "reproject"), (BENCH_B, H, W, "reproject"),
@@ -926,22 +1035,13 @@ def mono_kernels(dev, card):
                                               device=dev)
             grids = grids.contiguous()
         S = grids.shape[0]
-        with torch.no_grad():
-            got = warp_family_fwd(img, grids)
-            want = warp_family_reference(img, grids)
-        torch.cuda.synchronize()
-        werr = max((a - b).abs().max().item() for a, b in zip(got, want))
         cot = torch.randn(S * B, 3, h, w, device=dev, generator=gen)
-        in_x, in_y = grad_masks(grids, h, w)
-
-        def dgrid(rdx, rdy):
-            return torch.stack([(cot * rdx).sum(1).reshape(S, B, h, w) * in_x,
-                                (cot * rdy).sum(1).reshape(S, B, h, w) * in_y], -1)
-
-        gerr = _rel(dgrid(*got[1:]), dgrid(*want[1:]))
+        werr, gerr, gabs, got = _warp_errs(img, grids, cot)
+        errs["warp_family_fwd"] = max(errs["warp_family_fwd"], werr)
+        errs["warp_family_bwd"] = max(errs["warp_family_bwd"], gabs)
         # photometric on G = 10B: the warped maps, then identity maps
-        preds = torch.cat([got[0]] + [torch.rand(B, 3, h, w, device=dev, generator=gen)
-                                      for _ in range(10 - S)]).contiguous()
+        preds = torch.cat([got] + [torch.rand(B, 3, h, w, device=dev, generator=gen)
+                               for _ in range(10 - S)]).contiguous()
         targ = torch.rand(B, 3, h, w, device=dev, generator=gen)
         gout = torch.randn(preds.shape[0], h, w, device=dev, generator=gen) / preds[0].numel()
         with torch.no_grad():
@@ -950,7 +1050,6 @@ def mono_kernels(dev, card):
                           photometric_bwd_reference(preds, targ, gout))
         torch.cuda.synchronize()
         ferr, berr = (pf - pf_ref).abs().max().item(), _rel(pb, pb_ref)
-        errs["warp_family_fwd"] = max(errs["warp_family_fwd"], werr)
         errs["photometric_fwd"] = max(errs["photometric_fwd"], ferr)
         errs["photometric_bwd"] = max(errs["photometric_bwd"],
                                       (pb - pb_ref).abs().max().item())
@@ -993,7 +1092,7 @@ def mono_slice(dev):
 
     from ssde_tpu_torch.config import MonodepthOptions
     from ssde_tpu_torch.ops.photometric import photometric_bwd, photometric_fwd
-    from ssde_tpu_torch.ops.warp_banded import warp_family_fwd
+    from ssde_tpu_torch.ops.warp_banded import warp_family_bwd, warp_family_fwd
     from ssde_tpu_torch.scripts.train_dpt import build_trainer
 
     opts = MonodepthOptions().parse(["--model", "monodepth2", "--synthetic_data",
@@ -1012,16 +1111,18 @@ def mono_slice(dev):
     val = trainer.val
     trainer.val = lambda: (n_val.__setitem__(0, n_val[0] + 1), val())[1]
     torch.cuda.synchronize()
-    warp_family_fwd.launches = photometric_fwd.launches = photometric_bwd.launches = 0
+    warp_family_fwd.launches = warp_family_bwd.launches = 0
+    photometric_fwd.launches = photometric_bwd.launches = 0
     t0 = time.perf_counter()
     history = trainer.run_epoch()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {"warp_family_fwd": warp_family_fwd.launches,
+              "warp_family_bwd": warp_family_bwd.launches,
               "photometric_fwd": photometric_fwd.launches,
               "photometric_bwd": photometric_bwd.launches}
     steps = len(history)
-    want = {"warp_family_fwd": 2 * (steps + n_val[0]),
+    want = {"warp_family_fwd": 2 * (steps + n_val[0]), "warp_family_bwd": 2 * steps,
             "photometric_fwd": steps + n_val[0], "photometric_bwd": steps}
     losses = [{k: float(v) for k, v in h.items()} for h in history]
     print(f"mono slice: {steps} steps + {n_val[0]} val() at B={opts.batch_size}, "
@@ -1178,8 +1279,7 @@ def mono_times(dev, card):
     from ssde_tpu_torch.data.synthetic import make_synthetic_batch
     from ssde_tpu_torch.ops.photometric import (photometric_bwd, photometric_bwd_reference,
                                                 photometric_fwd, photometric_reference, work)
-    from ssde_tpu_torch.ops.warp import warp_family_reference
-    from ssde_tpu_torch.ops.warp_banded import warp_family_fwd
+    from ssde_tpu_torch.ops.warp_banded import warp_family_bwd, warp_family_fwd
     from ssde_tpu_torch.train.state import TrainState
     from ssde_tpu_torch.train.steps import build_mono_models, train_step
 
@@ -1191,43 +1291,50 @@ def mono_times(dev, card):
     for B in (MONO_B, BENCH_B):
         img = torch.rand(B, 3, H, W, device=dev, generator=gen)
         grids = _mono_grids(dev, B, H, W, gen)
+        dout = torch.randn(S_SCALES * B, 3, H, W, device=dev, generator=gen)
         preds = torch.rand(10 * B, 3, H, W, device=dev, generator=gen)
         gout = torch.randn(10 * B, H, W, device=dev, generator=gen)
+        warp = warp_times(img, grids, dout, card, "one source")
+        for name, entry in warp.items():
+            if B == MONO_B:
+                times[name] = entry
+            else:
+                times[name].update({f"b{B}_{k}": v for k, v in entry.items()})
+        if B == MONO_B:  # the host's share of a call: its enqueue, unsynchronised
+            img_s, grids_s = img.repeat(S_SCALES, 1, 1, 1), grids.flatten(0, 1)
+            with torch.no_grad():
+                times["warp_family_fwd"]["host_us"] = hk = host_us(
+                    lambda: warp_family_fwd(img, grids))
+                times["warp_family_fwd"]["library_host_us"] = hl = host_us(
+                    lambda: torch.nn.functional.grid_sample(
+                        img_s, grids_s, padding_mode="border", align_corners=False))
+                times["warp_family_bwd"]["host_us"] = hb = host_us(
+                    lambda: warp_family_bwd(img, grids, dout))
+            print(f"  host time a call, 300 unsynchronised calls at S={S_SCALES} B={B}: "
+                  f"warp_family_fwd {hk:.1f} us, F.grid_sample {hl:.1f} us, "
+                  f"warp_family_bwd {hb:.1f} us [{card}]")
+            del img_s, grids_s
         with torch.no_grad():
-            pairs = {"warp_family_fwd": (lambda: warp_family_fwd(img, grids),
-                                         lambda: warp_family_reference(img, grids)),
-                     "photometric_fwd": (lambda: photometric_fwd(preds, img),
+            pairs = {"photometric_fwd": (lambda: photometric_fwd(preds, img),
                                          lambda: photometric_reference(preds, img)),
                      "photometric_bwd": (lambda: photometric_bwd(preds, img, gout),
                                          lambda: photometric_bwd_reference(preds, img, gout))}
-            # the library yardstick of the warp: F.grid_sample over the S grids
-            # (image repeated outside the timing; no residuals); none computes
-            # the photometric error or its gradient in one call
-            img_s, grids_s = img.repeat(S_SCALES, 1, 1, 1), grids.flatten(0, 1)
-            library = {"warp_family_fwd": lambda: torch.nn.functional.grid_sample(
-                img_s, grids_s, padding_mode="border", align_corners=False)}
             # (FLOPs, bytes): every input read once, every output written once,
-            # float32; operations counted per output value: the warp's 4-tap
-            # lerp and 2 residuals ~20; the photometric kernels' 52.5 and 93.5 a
-            # value, counted from their bodies (ops/photometric.work)
-            n_warp, n_img = S_SCALES * B * 3 * H * W, B * 3 * H * W
-            cost = {"warp_family_fwd": (20 * n_warp, 4 * (n_img + S_SCALES * B * H * W * 2
-                                                         + 3 * n_warp)),
-                    "photometric_fwd": work("fwd", 10 * B, B, 3, H, W),
+            # float32; the photometric kernels' 52.5 and 93.5 operations a
+            # value, counted from their bodies (ops/photometric.work); no
+            # library call computes the photometric error or its gradient
+            cost = {"photometric_fwd": work("fwd", 10 * B, B, 3, H, W),
                     "photometric_bwd": work("bwd", 10 * B, B, 3, H, W)}
             for name, (k, p) in pairs.items():
                 tp1, tk1, tk2, tp2 = cuda_ms(p), cuda_ms(k), cuda_ms(k), cuda_ms(p)
                 tk, tp = (tk1 + tk2) / 2, (tp1 + tp2) / 2
-                tl = cuda_ms(library[name]) if name in library else None
                 bms, by = bound(*cost[name], "float32")
                 if B == MONO_B:
                     times[name] = {"ms": tk, "plain_ms": tp, "bound_ms": bms, "bound_by": by,
-                                   "library_ms": tl}
-                shape = f"S={S_SCALES} one source" if name.startswith("warp") else f"G={10 * B}"
-                print(f"  {name} B={B} {shape} {H}x{W}: kernel {tk:.4f} ms, plain "
-                      f"{tp:.4f} ms, library " + ("none" if tl is None else f"{tl:.4f} ms")
-                      + f", bound {bms:.4f} ms ({by}) [{card}]")
-        del img, grids, preds, gout, img_s, grids_s
+                                   "library_ms": None}
+                print(f"  {name} B={B} G={10 * B} {H}x{W}: kernel {tk:.4f} ms, plain "
+                      f"{tp:.4f} ms, library none, bound {bms:.4f} ms ({by}) [{card}]")
+        del img, grids, dout, preds, gout
         if B == MONO_B:  # the GRU steps' G = 240 (B=8, T=3) and 1200 (B=12, T=10): kernels
             for G in (240, 1200):  # alone (the plain backward would need tens of GB)
                 preds = torch.rand(G, 3, H, W, device=dev, generator=gen)
@@ -1243,6 +1350,8 @@ def mono_times(dev, card):
                               f"{bms:.4f} ms ({by}) [{card}]")
                 del preds, targ, gout
 
+        torch.cuda.empty_cache()  # the step's own peak, not the plain versions
+        torch.cuda.reset_peak_memory_stats()
         opts = Options(height=H, width=W, batch_size=B)  # bf16 autocast, the defaults
         models = build_mono_models(opts, dev, torch.Generator().manual_seed(SEED))
         state = TrainState(models.parameters(), opts.learning_rate, 15, 1000)
@@ -1267,10 +1376,16 @@ def mono_times(dev, card):
               f"{1 - busy / (IDLE_STEPS * ms):.1%} of {IDLE_STEPS} unprofiled steps "
               f"({IDLE_STEPS * ms:.1f} ms), {1 - busy / wall:.1%} of the profiled wall "
               f"({wall:.1f} ms, the profiler's host cost included); peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
+        # the residuals rdx, rdy that the warp's Function kept until the
+        # backward before the backward became a kernel: two sources a step
+        print(f"  the step's warp saves the image and the grids; the residuals it no longer "
+              f"keeps: {2 * 2 * S_SCALES * B * 3 * H * W * 4 / 2**30:.3f} GiB a step "
+              f"(computed from the shapes; scripts/bench_warp measures both bodies)")
         if not np.isfinite(last):
             fail(f"mono train step B={B}: loss {last}")
         times.setdefault("train_step_ms", {})[B] = ms
+        times.setdefault("train_step_peak_gib", {})[B] = torch.cuda.max_memory_allocated() / 2**30
         if B == BENCH_B:
             table = prof.key_averages().table(sort_by="device_time_total", row_limit=25)
             os.makedirs("chiprun_out", exist_ok=True)
@@ -1425,12 +1540,12 @@ def _gru_counters():
     from ssde_tpu_torch.ops.attention_win import attend3_bwd, attend3_fwd
     from ssde_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_dw, conv3x3_dx
     from ssde_tpu_torch.ops.photometric import photometric_bwd, photometric_fwd
-    from ssde_tpu_torch.ops.warp_banded import warp_family_fwd
+    from ssde_tpu_torch.ops.warp_banded import warp_family_bwd, warp_family_fwd
 
     return {"conv3x3_fwd": conv3x3, "conv3x3_dx": conv3x3_dx, "conv3x3_dw": conv3x3_dw,
             "attend3_fwd": attend3_fwd, "attend3_bwd": attend3_bwd,
-            "warp_family_fwd": warp_family_fwd, "photometric_fwd": photometric_fwd,
-            "photometric_bwd": photometric_bwd}
+            "warp_family_fwd": warp_family_fwd, "warp_family_bwd": warp_family_bwd,
+            "photometric_fwd": photometric_fwd, "photometric_bwd": photometric_bwd}
 
 
 def _block_launches(version, T, head_calls=1):
@@ -1493,8 +1608,8 @@ def gru_slice(dev, version=VERSION):
     wall = time.perf_counter() - t0
     counts = {k: fn.launches for k, fn in counters.items()}
     steps = len(history)
-    per_step = {**_block_launches(version, GRU_T),
-                "warp_family_fwd": 2, "photometric_fwd": 1, "photometric_bwd": 1}
+    per_step = {**_block_launches(version, GRU_T), "warp_family_fwd": 2,
+                "warp_family_bwd": 2, "photometric_fwd": 1, "photometric_bwd": 1}
     per_val = {k: v if k in ("conv3x3_fwd", "attend3_fwd") else 0 for k, v in per_step.items()}
     per_val.update(warp_family_fwd=2, photometric_fwd=1)
     want = {k: steps * per_step[k] + n_val[0] * per_val[k] for k in counters}
@@ -2705,7 +2820,7 @@ def kitti_train(dev, card, mono_step_ms, root):
         trainer, mono_weights = _kitti_trainer_run(
             "mono", Trainer, train_dpt.main, argv,
             ["encoder.pth", "depth.pth", "pose_encoder.pth", "pose.pth", "adam.pth"],
-            ["warp_family_fwd", "photometric_fwd", "photometric_bwd"], card)
+            ["warp_family_fwd", "warp_family_bwd", "photometric_fwd", "photometric_bwd"], card)
         _kitti_reload("mono", train_dpt.build_trainer, parse, argv, trainer, mono_weights, card)
         # the loader-fed step: an unprofiled epoch on the host clock, then a
         # profiled one for the device's busy time (val() left out of both)
@@ -2732,8 +2847,8 @@ def kitti_train(dev, card, mono_step_ms, root):
         trainer, gru_weights = _kitti_trainer_run(
             "gru v10", GRUTrainer, train_gru.main, argv,
             ["encoder.pth", "depth.pth", "pose_encoder.pth", "pose.pth", "gru.pth", "adam.pth"],
-            ["conv3x3_fwd", "conv3x3_dx", "conv3x3_dw", "warp_family_fwd", "photometric_fwd",
-             "photometric_bwd"], card)
+            ["conv3x3_fwd", "conv3x3_dx", "conv3x3_dw", "warp_family_fwd", "warp_family_bwd",
+             "photometric_fwd", "photometric_bwd"], card)
         _kitti_reload("gru v10", train_gru.build_trainer, parse, argv, trainer, gru_weights, card)
         trainer.val = lambda: {}
         torch.cuda.synchronize()
@@ -3117,7 +3232,8 @@ def native_checkpoints(dev, card, root, data, mono_weights, gru_weights, mono_me
         fail("native mono: evaluate_depth on the .ckpt folder gives other metrics")
     launched = _read(counters)
     missing = [k for k in ("conv3x3_fwd", "conv3x3_dx", "conv3x3_dw", "warp_family_fwd",
-                           "photometric_fwd", "photometric_bwd") if not launched[k]]
+                           "warp_family_bwd", "photometric_fwd", "photometric_bwd")
+               if not launched[k]]
     print(f"native: phase 27 took {time.perf_counter() - phase0:.1f} s; launches of its main "
           f"path {launched} [{card}]")
     if missing:
@@ -3350,8 +3466,8 @@ def family_v5_main(dev, card):
     opt = trainer.opt
     steps = len(histories[0])
     n_val = sum(1 for i in range(steps) if i % opt.log_frequency == 0)
-    per_step = {**_block_launches("v5", GRU_T), "warp_family_fwd": 2, "photometric_fwd": 1,
-                "photometric_bwd": 1}
+    per_step = {**_block_launches("v5", GRU_T), "warp_family_fwd": 2, "warp_family_bwd": 2,
+                "photometric_fwd": 1, "photometric_bwd": 1}
     per_val = {k: v if k in ("conv3x3_fwd", "attend3_fwd") else 0 for k, v in per_step.items()}
     per_val.update(warp_family_fwd=2, photometric_fwd=1)
     want = {k: steps * per_step[k] + n_val * per_val[k] for k in counters}
@@ -3402,8 +3518,8 @@ def family_train_step(dev, card, version):
     loss = float(train_step(models, state, batch, torch.Generator(dev).manual_seed(SEED))["loss"])
     secs = time.perf_counter() - t0
     launched = {k: fn.launches for k, fn in counters.items()}
-    want = {**_block_launches(version, FAMILY_T), "warp_family_fwd": 2, "photometric_fwd": 1,
-            "photometric_bwd": 1}
+    want = {**_block_launches(version, FAMILY_T), "warp_family_fwd": 2, "warp_family_bwd": 2,
+            "photometric_fwd": 1, "photometric_bwd": 1}
     if launched != want or not np.isfinite(loss):
         fail(f"family train {version}: loss {loss}, launches {launched}, expected {want}")
     del models, state, batch
@@ -3911,7 +4027,8 @@ def fusion_train_runs(dev, card):
             n = FUSION_ATTEND3["v3" if label == "rn_fusion" else label]
             want = {**dict.fromkeys(counters, 0), "attend3_fwd": n * (steps + vals),
                     "attend3_bwd": n * steps, "warp_family_fwd": 2 * (steps + vals),
-                    "photometric_fwd": steps + vals, "photometric_bwd": steps}
+                    "warp_family_bwd": 2 * steps, "photometric_fwd": steps + vals,
+                    "photometric_bwd": steps}
             still, stuck = _moved(obs, trainer)
             opt = trainer.opt
             print(f"fusion train {label}: main() {wall:.1f} s ({type(trainer).__name__}, "
@@ -4120,8 +4237,8 @@ def fusion_kitti(dev, card, root, data, splits):
             "fusion v3", FusionV3Trainer, train_fusion_v3.main, argv,
             ["encoder.pth", "depth.pth", "pose_encoder.pth", "pose.pth", "fusion.pth",
              "adam.pth"],
-            ["attend3_fwd", "attend3_bwd", "warp_family_fwd", "photometric_fwd",
-             "photometric_bwd"], card, gradless_ok=True)
+            ["attend3_fwd", "attend3_bwd", "warp_family_fwd", "warp_family_bwd",
+             "photometric_fwd", "photometric_bwd"], card, gradless_ok=True)
         launched = {k: fn.launches for k, fn in counters.items()}
         read = trainer.train_dataset.filenames
         with open(os.path.join(splits, "eigen_zhou", "train_files.txt")) as f:
@@ -4180,8 +4297,9 @@ DPT_G = 4 * MONO_B
 
 
 def dpt_kernels(dev, card):
-    """Phase 24 (a): the family warp (#7) at S = 1 (the DPT step warps one
-    full-resolution disparity per source) and the photometric forward and
+    """Phase 24 (a): the family warp (#7, forward and grid gradient) at S = 1
+    (the DPT step warps one full-resolution disparity per source) and the
+    photometric forward and
     backward (#5/#6) at the DPT step's G = 4B = 48, B=12, 640x192, against
     their plain versions (phase 6's tolerances), then each timed beside its
     plain version, the bound and a library call where one computes the same
@@ -4190,34 +4308,23 @@ def dpt_kernels(dev, card):
 
     from ssde_tpu_torch.ops.photometric import (photometric_bwd, photometric_bwd_reference,
                                                 photometric_fwd, photometric_reference, work)
-    from ssde_tpu_torch.ops.warp import warp_family_reference
-    from ssde_tpu_torch.ops.warp_banded import grad_masks, warp_family_fwd
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 30)
     B, S = MONO_B, 1
     img = torch.rand(B, 3, H, W, device=dev, generator=gen)
     grids = _mono_grids(dev, B, H, W, gen, S=S)
-    with torch.no_grad():
-        got, want = warp_family_fwd(img, grids), warp_family_reference(img, grids)
     cot = torch.randn(S * B, 3, H, W, device=dev, generator=gen)
-    in_x, in_y = grad_masks(grids, H, W)
-
-    def dgrid(rdx, rdy):
-        return torch.stack([(cot * rdx).sum(1).reshape(S, B, H, W) * in_x,
-                            (cot * rdy).sum(1).reshape(S, B, H, W) * in_y], -1)
-
-    werr = max((a - b).abs().max().item() for a, b in zip(got, want))
-    gerr = _rel(dgrid(*got[1:]), dgrid(*want[1:]))
+    werr, gerr, gabs, got = _warp_errs(img, grids, cot)
     # the step's pairs: the 2 warped maps of each item, then the 2 identity maps
-    preds = torch.cat([got[0]] + [torch.rand(B, 3, H, W, device=dev, generator=gen)
-                                  for _ in range(DPT_G // B - S)]).contiguous()
+    preds = torch.cat([got] + [torch.rand(B, 3, H, W, device=dev, generator=gen)
+                               for _ in range(DPT_G // B - S)]).contiguous()
     gout = torch.randn(DPT_G, H, W, device=dev, generator=gen) / preds[0].numel()
     with torch.no_grad():
         pf, pf_ref = photometric_fwd(preds, img), photometric_reference(preds, img)
         pb, pb_ref = photometric_bwd(preds, img, gout), photometric_bwd_reference(preds, img, gout)
     torch.cuda.synchronize()
     ferr, berr = (pf - pf_ref).abs().max().item(), _rel(pb, pb_ref)
-    errs = {"warp_family_fwd": werr, "photometric_fwd": ferr,
+    errs = {"warp_family_fwd": werr, "warp_family_bwd": gabs, "photometric_fwd": ferr,
             "photometric_bwd": (pb - pb_ref).abs().max().item()}
     print(f"dpt kernels vs plain versions at B={B} {H}x{W}: warp S={S} abs {werr:.3e}, grid "
           f"grad rel {gerr:.3e} (bound {TOL_WARP}); photometric G={DPT_G} fwd abs {ferr:.3e} "
@@ -4226,34 +4333,28 @@ def dpt_kernels(dev, card):
             and berr <= TOL_PHOTO_BWD):
         fail("dpt kernels: a kernel disagrees with its plain version at the DPT step's shapes")
 
-    n_warp, n_img = S * B * 3 * H * W, B * 3 * H * W
-    pairs = {"warp_family_fwd": (lambda: warp_family_fwd(img, grids),
-                                 lambda: warp_family_reference(img, grids),
-                                 lambda: torch.nn.functional.grid_sample(
-                                     img, grids[0], padding_mode="border", align_corners=False),
-                                 (20 * n_warp, 4 * (n_img + S * B * H * W * 2 + 3 * n_warp))),
-             "photometric_fwd": (lambda: photometric_fwd(preds, img),
-                                 lambda: photometric_reference(preds, img), None,
+    pairs = {"photometric_fwd": (lambda: photometric_fwd(preds, img),
+                                 lambda: photometric_reference(preds, img),
                                  work("fwd", DPT_G, B, 3, H, W)),
              "photometric_bwd": (lambda: photometric_bwd(preds, img, gout),
-                                 lambda: photometric_bwd_reference(preds, img, gout), None,
+                                 lambda: photometric_bwd_reference(preds, img, gout),
                                  work("bwd", DPT_G, B, 3, H, W))}
     print(f"dpt kernel times on {card} (CUDA events; 20 launches after 3 warm-up, order plain, "
-          f"kernel, kernel, plain; library: F.grid_sample border on the S grid, no residuals)")
-    times = {}
+          f"kernel, kernel, plain; the warp's library calls: F.grid_sample border and aten's "
+          f"grid_sampler_2d_backward for the grid; none for the photometric kernels)")
+    times = warp_times(img, grids, cot, card, "the DPT step's")
+    times["warp_family_bwd"].update({f"pair_{k}": v
+                                     for k, v in times.pop("warp_family_pair").items()})
     with torch.no_grad():
-        for name, (k, p, lib, cost) in pairs.items():
+        for name, (k, p, cost) in pairs.items():
             tp1, tk1, tk2, tp2 = cuda_ms(p), cuda_ms(k), cuda_ms(k), cuda_ms(p)
-            tl = None if lib is None else cuda_ms(lib)
             bms, by = bound(*cost, "float32")
             times[name] = {"ms": (tk1 + tk2) / 2, "plain_ms": (tp1 + tp2) / 2, "bound_ms": bms,
-                           "bound_by": by, "library_ms": tl}
-            shape = f"S={S}" if name.startswith("warp") else f"G={DPT_G}"
-            print(f"  {name} B={B} {shape} {H}x{W}: kernel {times[name]['ms']:.4f} ms, plain "
-                  f"{times[name]['plain_ms']:.4f} ms, library "
-                  + ("none" if tl is None else f"{tl:.4f} ms")
-                  + f", bound {bms:.4f} ms ({by}) [{card}]")
-    del img, grids, got, want, preds, gout, pf, pf_ref, pb, pb_ref
+                           "bound_by": by, "library_ms": None}
+            print(f"  {name} B={B} G={DPT_G} {H}x{W}: kernel {times[name]['ms']:.4f} ms, plain "
+                  f"{times[name]['plain_ms']:.4f} ms, library none, bound {bms:.4f} ms ({by}) "
+                  f"[{card}]")
+    del img, grids, cot, got, preds, gout, pf, pf_ref, pb, pb_ref
     torch.cuda.empty_cache()
     return errs, times
 
@@ -4347,7 +4448,8 @@ def dpt_train_runs(dev, card, log):
                 total[k] += v
             steps, vals = len(obs.history), len(obs.vals)
             want = {**dict.fromkeys(counters, 0), "warp_family_fwd": 2 * (steps + vals),
-                    "photometric_fwd": steps + vals, "photometric_bwd": steps}
+                    "warp_family_bwd": 2 * steps, "photometric_fwd": steps + vals,
+                    "photometric_bwd": steps}
             still, stuck = _moved(obs, trainer)
             opt = trainer.opt
             print(f"dpt train {label}: main() {wall:.1f} s ({type(trainer).__name__}, "
@@ -4383,7 +4485,8 @@ def dpt_train_runs(dev, card, log):
                 dpt_resume(dev, card, trainer, folder, argv)
 
             _time_train_step(f"dpt train {label}", trainer, batch, dev, card,
-                             {"warp_family_fwd": 2, "photometric_fwd": 1, "photometric_bwd": 1})
+                             {"warp_family_fwd": 2, "warp_family_bwd": 2, "photometric_fwd": 1,
+                              "photometric_bwd": 1})
             del trainer, obs
             torch.cuda.empty_cache()
     finally:
@@ -4612,34 +4715,38 @@ def _option_launches(kw):
     """The kernels' launches in one train step of the mono step under the
     options ``kw`` (Options fields): a warp per source (per scale and source
     under --v1_multiscale), one photometric forward and backward (one a
-    scale under --v1_multiscale, none under --no_ssim)."""
+    scale under --v1_multiscale, none under --no_ssim); each warp's
+    backward once."""
     temporal = [f for f in kw.get("frame_ids", [0, -1, 1]) if f != "s"]
     F = (2 if temporal != [0] else 0) + (1 if kw.get("use_stereo") else 0)
     v1 = kw.get("v1_multiscale", False)
     photo = 0 if kw.get("no_ssim") else (S_SCALES if v1 else 1)
-    return {"warp_family_fwd": F * (S_SCALES if v1 else 1), "photometric_fwd": photo,
+    warps = F * (S_SCALES if v1 else 1)
+    return {"warp_family_fwd": warps, "warp_family_bwd": warps, "photometric_fwd": photo,
             "photometric_bwd": photo}
 
 
 def options_kernels(dev, card):
-    """Phase 25 (a): the family warp (#7) on the stereo source's grids (S = 4,
-    B=12, 640x192: MS warps three sources) and at S = 1 on the
+    """Phase 25 (a): the family warp (#7, forward and grid gradient) on the
+    stereo source's grids (S = 4, B=12, 640x192: MS warps three sources) and
+    at S = 1 on the
     --v1_multiscale sources (320x96, 160x48, 80x24), and the photometric
     forward and backward (#5/#6) at the MS step's G = 180 and at
     --v1_multiscale's G = 48 at those sizes, against their plain versions
     (phase 6's tolerances); then each timed beside its plain version, the
-    bound and, for the warp, F.grid_sample. Returns (worst errors, times by
-    kernel and case)."""
+    bound and, for the warp, the library calls of the same functions, and the
+    warp's host time a call at 80x24. Returns (worst errors, times by kernel
+    and case)."""
     import torch
 
     from ssde_tpu_torch.ops.photometric import (photometric_bwd, photometric_bwd_reference,
                                                 photometric_fwd, photometric_reference, work)
-    from ssde_tpu_torch.ops.warp import warp_family_reference
-    from ssde_tpu_torch.ops.warp_banded import grad_masks, warp_family_fwd
+    from ssde_tpu_torch.ops.warp_banded import warp_family_fwd
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 40)
     B = MONO_B
-    errs = dict.fromkeys(("warp_family_fwd", "photometric_fwd", "photometric_bwd"), 0.0)
+    errs = dict.fromkeys(("warp_family_fwd", "warp_family_bwd", "photometric_fwd",
+                          "photometric_bwd"), 0.0)
     times = {k: {} for k in errs}
     warps = [("stereo_s4_640x192", torch.rand(B, 3, H, W, device=dev, generator=gen),
               _mono_grids(dev, B, H, W, gen, stereo=True))]
@@ -4650,7 +4757,8 @@ def options_kernels(dev, card):
     print(f"options kernels vs plain versions at B={B} (warp abs {TOL_WARP}, its grid "
           f"gradient {TOL_WARP} of max; photometric fwd abs {TOL_PHOTO}, bwd {TOL_PHOTO_BWD} "
           f"of max); times on {card} (CUDA events; 20 launches after 3 warm-up, order plain, "
-          f"kernel, kernel, plain; library: F.grid_sample border on one grid, no residuals)")
+          f"kernel, kernel, plain; the warp's library calls: F.grid_sample border over the S "
+          f"grids and aten's grid_sampler_2d_backward for the grid)")
 
     def timed(name, case, k, p, lib, cost):
         with torch.no_grad():
@@ -4664,31 +4772,29 @@ def options_kernels(dev, card):
 
     for case, img, grids in warps:
         S, _, h, w, _ = grids.shape
-        with torch.no_grad():
-            got, want = warp_family_fwd(img, grids), warp_family_reference(img, grids)
         cot = torch.randn(S * B, 3, h, w, device=dev, generator=gen)
-        in_x, in_y = grad_masks(grids, h, w)
-
-        def dgrid(rdx, rdy):
-            return torch.stack([(cot * rdx).sum(1).reshape(S, B, h, w) * in_x,
-                                (cot * rdy).sum(1).reshape(S, B, h, w) * in_y], -1)
-
-        werr = max((a - b).abs().max().item() for a, b in zip(got, want))
-        gerr = _rel(dgrid(*got[1:]), dgrid(*want[1:]))
+        werr, gerr, gabs, _ = _warp_errs(img, grids, cot)
         errs["warp_family_fwd"] = max(errs["warp_family_fwd"], werr)
-        n_warp, n_img = S * B * 3 * h * w, B * 3 * h * w
-        t = timed("warp_family_fwd", case, lambda: warp_family_fwd(img, grids),
-                  lambda: warp_family_reference(img, grids),
-                  lambda: torch.nn.functional.grid_sample(img, grids[0], padding_mode="border",
-                                                          align_corners=False),
-                  (20 * n_warp, 4 * (n_img + S * B * h * w * 2 + 3 * n_warp)))
-        print(f"  warp {case} S={S} B={B} {w}x{h}: abs {werr:.3e}, grid grad rel {gerr:.3e}; "
-              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
-              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) "
-              f"[{card}]")
+        errs["warp_family_bwd"] = max(errs["warp_family_bwd"], gabs)
+        print(f"  warp {case} S={S} B={B} {w}x{h}: abs {werr:.3e}, grid grad rel {gerr:.3e}")
         if not (werr <= TOL_WARP and gerr <= TOL_WARP):
             fail(f"options kernels: the warp disagrees with its plain version at {case}")
-        del got, want, cot
+        t = warp_times(img, grids, cot, card, case)
+        for key, v in t.pop("warp_family_pair").items():
+            times["warp_family_bwd"][f"{case}_pair_{key}"] = v
+        for name, entry in t.items():
+            times[name].update({f"{case}_{key}": v for key, v in entry.items()})
+        if case == f"v1_s1_{V1_SIZES[-1][1]}x{V1_SIZES[-1][0]}":  # the smallest: a floor?
+            img_s = img.repeat(S, 1, 1, 1)
+            with torch.no_grad():
+                hk = host_us(lambda: warp_family_fwd(img, grids))
+                hl = host_us(lambda: torch.nn.functional.grid_sample(
+                    img_s, grids[0], padding_mode="border", align_corners=False))
+            times["warp_family_fwd"][f"{case}_host_us"] = hk
+            times["warp_family_fwd"][f"{case}_library_host_us"] = hl
+            print(f"  host time a call, 300 unsynchronised calls at {case}: warp_family_fwd "
+                  f"{hk:.1f} us, F.grid_sample {hl:.1f} us [{card}]")
+        del cot
     for case, G, h, w in photos:
         preds = torch.rand(G, 3, h, w, device=dev, generator=gen)
         targ = torch.rand(B, 3, h, w, device=dev, generator=gen)
@@ -4757,7 +4863,8 @@ def options_train_runs(dev, card, log):
                 total[k] += v
             steps, vals = len(obs.history), len(obs.vals)
             want = {**dict.fromkeys(counters, 0), "warp_family_fwd": F * (steps + vals),
-                    "photometric_fwd": steps + vals, "photometric_bwd": steps}
+                    "warp_family_bwd": F * steps, "photometric_fwd": steps + vals,
+                    "photometric_bwd": steps}
             still, stuck = _moved(obs, trainer)
             opt, models = trainer.opt, trainer.models
             built = [type(m).__name__ for m in models.modules()]
@@ -4791,7 +4898,8 @@ def options_train_runs(dev, card, log):
             step_ms[label] = _time_train_step(
                 f"options train {label}", trainer,
                 make_synthetic_batch(MONO_B, H, W, steps_mod.frame_ids(opt), seed=SEED), dev,
-                card, {"warp_family_fwd": F, "photometric_fwd": 1, "photometric_bwd": 1})
+                card, {"warp_family_fwd": F, "warp_family_bwd": F, "photometric_fwd": 1,
+                       "photometric_bwd": 1})
             del trainer, models, obs
             torch.cuda.empty_cache()
     finally:
@@ -4955,8 +5063,8 @@ def _gru_step_launches(version, T=GRU_T, remat="0"):
     sources and its photometric forward and backward). Under a ``remat``
     mode other than "0" (steps_gru.remat_mode) the block's forward runs
     again in the backward."""
-    launches = {**_block_launches(version, T), "warp_family_fwd": 2, "photometric_fwd": 1,
-                "photometric_bwd": 1}
+    launches = {**_block_launches(version, T), "warp_family_fwd": 2, "warp_family_bwd": 2,
+                "photometric_fwd": 1, "photometric_bwd": 1}
     if remat != "0":
         launches["conv3x3_fwd"] += len(slice_convs(version, H, W)) * T
         launches["attend3_fwd"] += len(slice_attention(version, H, W)) * T
@@ -5059,7 +5167,8 @@ def bench_scripts(dev, card):
                 total[k] += v
             steps = 1 + 3 * (BENCH_FED_IMAGES // FED_B)  # the warm-up, then 3 rows of an epoch
             want = {**dict.fromkeys(counters, 0), "warp_family_fwd": 2 * steps,
-                    "photometric_fwd": steps, "photometric_bwd": steps}
+                    "warp_family_bwd": 2 * steps, "photometric_fwd": steps,
+                    "photometric_bwd": steps}
             print(f"bench_loader {' '.join(argv)}: samples/s {rates}; launches {launched}, "
                   f"expected {want} [{card}]")
             if launched != want or list(rates) != ["direct", "plain_put_prefetch", "direct2"] \
@@ -5104,7 +5213,8 @@ def trainer_logs(dev, card, log):
         torch.backends.cudnn.allow_tf32 = False
     opt, steps = trainer.opt, trainer.step
     want = {**dict.fromkeys(counters, 0), "warp_family_fwd": 4 * steps,
-            "photometric_fwd": 2 * steps, "photometric_bwd": steps}  # a val() a step
+            "warp_family_bwd": 2 * steps, "photometric_fwd": 2 * steps,
+            "photometric_bwd": steps}  # a val() a step
     lines = [ln for ln in tee.text().splitlines() if "examples/s" in ln]
     bad = [ln for ln in lines if not re.fullmatch(HM_LINE, ln)]
     print(f"logs: train_dpt.main() {opt.height}x{opt.width} B={opt.batch_size} "

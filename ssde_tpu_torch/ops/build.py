@@ -45,8 +45,10 @@ SIGNATURES = {
     "ssde_conv3x3_fwd_bf16": [_P] * 4 + [_I] * 10,
     # bf16: x, g, partial, dw, B, Cin, H, W, Cout, P, tile_m, reflect
     "ssde_conv3x3_dw_bf16": [_P] * 4 + [_I] * 8,
-    # img, grids, out, rdx, rdy, S, B, C, H, W, Ho, Wo
-    "ssde_warp_family_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
+    # img, grids, out, S, B, C, H, W, Ho, Wo
+    "ssde_warp_family_fwd": [_P] * 3 + [_I] * 7,
+    # img, grids, dout, dgrid, S, B, C, H, W, Ho, Wo
+    "ssde_warp_family_bwd": [_P] * 4 + [_I] * 7,
     # pred, targ, out, G, B, C, H, W
     "ssde_photometric_fwd": [_P, _P, _P, _I, _I, _I, _I, _I],
     # pred, targ, gout, dpred, G, B, C, H, W

@@ -8,9 +8,10 @@ the 2x2 window is anchored at clip(floor(f), 0, W-2) and the fraction taken
 against the anchor, so at the right border x0 = W-2 and wx = 1.
 
 Images are NCHW here (B, C, H, W); grids are (B, Ho, Wo, 2) as in JAX.
-:func:`warp_family_reference` is the plain version of the family kernel
-(``ops/warp_banded``): one source at S grids, with the residuals of its
-backward.
+:func:`warp_family_reference` and :func:`warp_family_bwd_reference` are the
+plain versions of the family kernels (``ops/warp_banded``): one source at S
+grids with the residuals of the backward, and the grid gradient assembled
+from those residuals.
 """
 
 from __future__ import annotations
@@ -68,3 +69,27 @@ def warp_family_reference(img: torch.Tensor, grids: torch.Tensor):
         rdxs.append((1 - wy) * (t01 - t00) + wy * (t11 - t10))
         rdys.append((1 - wx) * (t10 - t00) + wx * (t11 - t01))
     return torch.cat(outs), torch.cat(rdxs), torch.cat(rdys)
+
+
+def grad_masks(grids: torch.Tensor, H: int, W: int):
+    """d f / d g where the continuous coordinate was not clamped, else 0
+    (the JAX ``_grad_masks``: strict inequalities against the unclamped
+    coordinate), for x and y, each (S, B, Ho, Wo)."""
+    rx, ry = unnormalize(grids, H, W)
+    in_x = ((rx > 0) & (rx < W - 1)).float() * (W * 0.5)
+    in_y = ((ry > 0) & (ry < H - 1)).float() * (H * 0.5)
+    return in_x, in_y
+
+
+def warp_family_bwd_reference(img: torch.Tensor, grids: torch.Tensor, dout: torch.Tensor):
+    """Plain version of the family warp's backward: the gradient of
+    ``warp_family_reference(img, grids)[0]`` in ``grids`` (S, B, Ho, Wo, 2)
+    against ``dout`` (S*B, C, Ho, Wo), from the residuals (``_gsbp_bwd``:
+    dgrid = sum_c dout * rd, masked and scaled by W/2, H/2)."""
+    S, B, Ho, Wo, _ = grids.shape
+    H, W = img.shape[2:]
+    _, rdx, rdy = warp_family_reference(img, grids)
+    in_x, in_y = grad_masks(grids, H, W)
+    dwx = (dout * rdx).sum(1).reshape(S, B, Ho, Wo)
+    dwy = (dout * rdy).sum(1).reshape(S, B, Ho, Wo)
+    return torch.stack([dwx * in_x, dwy * in_y], -1)

@@ -1,6 +1,6 @@
 """The family warp of the training loss: one source image at S coordinate
-fields in one launch, forward as a hand-written CUDA kernel, backward from
-its residuals (counterpart of ``ssde_tpu/ops/pallas/warp_banded.py``
+fields in one launch, its forward and its grid gradient each a
+hand-written CUDA kernel (counterpart of ``ssde_tpu/ops/pallas/warp_banded.py``
 ``grid_sample_banded_planar``).
 
 The TPU kernel clamps source rows outside a vertical band and zeroes
@@ -8,14 +8,16 @@ columns outside a 3-tile window, and keeps its taps and residuals in
 bf16; those are Mosaic gather and HBM-traffic workarounds. This warp is
 exact float32 border ``grid_sample`` (``ops/warp.grid_sample``) at every
 coordinate, so it has no band to violate and the port logs no
-``warp/band_violation``.
+``warp/band_violation``. Nor does it keep the TPU's residuals: the
+backward kernel recomputes the taps from the image.
 
-:func:`warp_family_fwd` launches ``ssde_tpu_torch/csrc/warp_family.cu`` for
-CUDA tensors and raises on anything that kernel does not take; only tensors
-that lie on the CPU go to :func:`ops.warp.warp_family_reference`.
-:func:`grid_sample_family` is the differentiable op: the gradient reaches
-the grids only, never the image (raw data in this loss graph, as in the
-JAX package).
+:func:`warp_family_fwd` and :func:`warp_family_bwd` launch
+``ssde_tpu_torch/csrc/warp_family.cu`` for CUDA tensors and raise on
+anything those kernels do not take; only tensors that lie on the CPU go to
+the plain versions :func:`ops.warp.warp_family_reference` and
+:func:`ops.warp.warp_family_bwd_reference`. :func:`grid_sample_family` is
+the differentiable op: the gradient reaches the grids only, never the
+image (raw data in this loss graph, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from .build import launch
-from .warp import unnormalize, warp_family_reference
+from .warp import warp_family_bwd_reference, warp_family_reference
 
 
 def _check_args(img: torch.Tensor, grids: torch.Tensor) -> None:
@@ -46,59 +48,73 @@ def _check_args(img: torch.Tensor, grids: torch.Tensor) -> None:
         raise ValueError("warp_family: img and grids must be contiguous")
 
 
-def warp_family_fwd(img: torch.Tensor, grids: torch.Tensor):
+def warp_family_fwd(img: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
     """``img`` (B, C, H, W) sampled at ``grids`` (S, B, Ho, Wo, 2)
-    (align_corners=False, border) -> (out, rdx, rdy), each
-    (S*B, C, Ho, Wo) with g = s*B + b. float32; the CPU twin also takes
-    float64, for reference runs."""
+    (align_corners=False, border) -> (S*B, C, Ho, Wo) with g = s*B + b.
+    float32; the CPU twin also takes float64, for reference runs."""
     _check_args(img, grids)
     if img.device.type == "cpu":
-        return warp_family_reference(img, grids)
+        return warp_family_reference(img, grids)[0]
     if img.device.type != "cuda":
         raise ValueError(f"warp_family: no kernel for device {img.device}")
     B, C, H, W = img.shape
     S, _, Ho, Wo, _ = grids.shape
-    out, rdx, rdy = (torch.empty((S * B, C, Ho, Wo), dtype=torch.float32,
-                                 device=img.device) for _ in range(3))
+    out = torch.empty((S * B, C, Ho, Wo), dtype=torch.float32, device=img.device)
     launch("ssde_warp_family_fwd", img.device, img.data_ptr(), grids.data_ptr(),
-           out.data_ptr(), rdx.data_ptr(), rdy.data_ptr(), S, B, C, H, W, Ho, Wo)
+           out.data_ptr(), S, B, C, H, W, Ho, Wo)
     warp_family_fwd.launches += 1
-    return out, rdx, rdy
+    return out
 
 
 warp_family_fwd.launches = 0  # kernel launches; the CPU twin does not count
 
 
-def grad_masks(grids: torch.Tensor, H: int, W: int):
-    """d f / d g where the continuous coordinate was not clamped, else 0
-    (the JAX ``_grad_masks``: strict inequalities against the unclamped
-    coordinate), for x and y, each (S, B, Ho, Wo)."""
-    rx, ry = unnormalize(grids, H, W)
-    in_x = ((rx > 0) & (rx < W - 1)).float() * (W * 0.5)
-    in_y = ((ry > 0) & (ry < H - 1)).float() * (H * 0.5)
-    return in_x, in_y
+def warp_family_bwd(img: torch.Tensor, grids: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``warp_family_fwd(img, grids)`` in ``grids`` against
+    ``dout`` (S*B, C, Ho, Wo) -> (S, B, Ho, Wo, 2): the channel sum of dout
+    times d out / d (wx, wy), times W/2 (H/2) where the unclamped coordinate
+    lies strictly inside the image, else 0 (``_gsbp_bwd``)."""
+    _check_args(img, grids)
+    S, B, Ho, Wo, _ = grids.shape
+    C = img.shape[1]
+    if dout.device != img.device:
+        raise ValueError("warp_family: img, grids and dout must be on one device")
+    if dout.dtype != img.dtype:
+        raise TypeError(f"warp_family: dout must be {img.dtype}, got {dout.dtype}")
+    if tuple(dout.shape) != (S * B, C, Ho, Wo):
+        raise ValueError(f"warp_family: dout must be {(S * B, C, Ho, Wo)}, got "
+                         f"{tuple(dout.shape)}")
+    if not dout.is_contiguous():
+        raise ValueError("warp_family: dout must be contiguous")
+    if img.device.type == "cpu":
+        return warp_family_bwd_reference(img, grids, dout)
+    if img.device.type != "cuda":
+        raise ValueError(f"warp_family: no kernel for device {img.device}")
+    H, W = img.shape[2:]
+    dgrid = torch.empty_like(grids)
+    launch("ssde_warp_family_bwd", img.device, img.data_ptr(), grids.data_ptr(),
+           dout.data_ptr(), dgrid.data_ptr(), S, B, C, H, W, Ho, Wo)
+    warp_family_bwd.launches += 1
+    return dgrid
+
+
+warp_family_bwd.launches = 0  # kernel launches; the CPU twin does not count
 
 
 class _GridSampleFamily(torch.autograd.Function):
     @staticmethod
     def forward(ctx, img, grids):
-        out, rdx, rdy = warp_family_fwd(img, grids)
-        ctx.save_for_backward(rdx, rdy, grids)
-        ctx.hw = img.shape[2:]
-        return out
+        ctx.save_for_backward(img, grids)
+        return warp_family_fwd(img, grids)
 
     @staticmethod
     def backward(ctx, dout):
-        rdx, rdy, grids = ctx.saved_tensors
-        S, B, Ho, Wo, _ = grids.shape
-        in_x, in_y = grad_masks(grids, *ctx.hw)
-        dwx = (dout * rdx).sum(1).reshape(S, B, Ho, Wo)
-        dwy = (dout * rdy).sum(1).reshape(S, B, Ho, Wo)
-        return None, torch.stack([dwx * in_x, dwy * in_y], -1)
+        img, grids = ctx.saved_tensors
+        return None, warp_family_bwd(img, grids, dout.contiguous())
 
 
 def grid_sample_family(img: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
     """Differentiable family warp: (S*B, C, Ho, Wo), gradient into
     ``grids`` only (``_gsbp_bwd``: dgrid = sum_c dout * rd, masked and
-    scaled by W/2, H/2)."""
+    scaled by W/2, H/2, the taps recomputed from ``img``)."""
     return _GridSampleFamily.apply(img.detach(), grids)

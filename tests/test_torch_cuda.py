@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their plain twins, on the card:
 conv3x3 (#1) forward and as dx, its weight gradient (#2), the family warp
-(#7), the photometric error forward and backward (#5, #6) and the windowed
+(#7) forward and grid gradient, the photometric error forward and backward (#5, #6) and the windowed
 attention forward and backward (#3, #4).
 
 These tests need a CUDA card (sm_90a) and nvcc, and skip elsewhere. They
@@ -38,8 +38,8 @@ from ssde_tpu_torch.ops.conv3x3 import (ACTS, act_grad, conv3x3, conv3x3_dw,
 from ssde_tpu_torch.ops import photometric as photo
 from ssde_tpu_torch.ops.photometric import (photometric_bwd, photometric_bwd_reference,
                                             photometric_fwd, photometric_reference)
-from ssde_tpu_torch.ops.warp import warp_family_reference
-from ssde_tpu_torch.ops.warp_banded import grid_sample_family, warp_family_fwd
+from ssde_tpu_torch.ops.warp import warp_family_bwd_reference, warp_family_reference
+from ssde_tpu_torch.ops.warp_banded import grid_sample_family, warp_family_bwd, warp_family_fwd
 
 pytestmark = pytest.mark.cuda
 
@@ -274,7 +274,8 @@ def test_bf16_weight_gradient_reads_an_unaligned_g(dev, cout):
 # ------------------------------------------------ family warp and photometric
 # Bounds as in chip_smoke.py: the warp's coordinates are rounded as the
 # twin rounds them, its interpolation may fuse multiply-adds: 1e-5 absolute
-# on images in [0, 1]. The photometric forward 1e-5 absolute; its backward
+# on images in [0, 1]; its grid gradient sums the channels in another
+# order, 1e-5 of max. The photometric forward 1e-5 absolute; its backward
 # cancels terms of size ~1/C2, so 1e-4 relative to max |d pred|.
 
 
@@ -285,32 +286,88 @@ def _warp_inputs(dev, S, B, H, W, spread, seed=0):
     return img, grids.contiguous()
 
 
+def _check_warp(img, grids, dout):
+    """Both kernels against their plain versions on the same operands."""
+    S, B, H, W, _ = grids.shape
+    out = warp_family_fwd(img, grids)
+    dgrid = warp_family_bwd(img, grids, dout)
+    torch.cuda.synchronize()
+    assert out.shape == (S * B, img.shape[1], H, W) and dgrid.shape == grids.shape
+    torch.testing.assert_close(out, warp_family_reference(img, grids)[0], atol=1e-5, rtol=0)
+    want = warp_family_bwd_reference(img, grids, dout)
+    torch.testing.assert_close(dgrid, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+    return out, dgrid
+
+
 @pytest.mark.parametrize("S,B,H,W,spread", [
     (1, 1, 2, 2, 1.0),       # the 2x2 minimum, every pixel a border case
     (3, 2, 7, 37, 1.3),      # ragged, a third of the coordinates out of range
     (4, 3, 33, 65, 0.9),
     (2, 1, 192, 640, 1.0),   # the slice's width
+    (2, 2, 9, 13, 1.2),      # odd Wo and Ho*Wo: a pixel a thread
+    (2, 3, 6, 5, 1.1),       # Wo one past 4 pixels a thread, Ho*Wo = 2 (mod 4)
+    (2, 3, 8, 5, 1.1),       # Wo = 5, Ho*Wo = 0 (mod 4): a thread's 4 pixels span rows
+    (1, 12, 96, 320, 1.0),   # --v1_multiscale's S = 1 at scales 1-3
+    (1, 12, 48, 160, 1.0),
+    (1, 12, 24, 80, 1.0),
 ])
 def test_warp_family_matches_twin(dev, S, B, H, W, spread):
     img, grids = _warp_inputs(dev, S, B, H, W, spread)
-    got = warp_family_fwd(img, grids)
-    want = warp_family_reference(img, grids)
-    torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        assert a.shape == (S * B, 3, H, W)
-        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
-    # the backward: plain torch on the kernel's residuals vs on the twin's
+    dout = torch.randn(S * B, 3, H, W, device=dev)
+    _check_warp(img, grids, dout)
+    # through the autograd Function: the forward kernel's output, the
+    # backward kernel's gradient, one launch each
+    before = (warp_family_fwd.launches, warp_family_bwd.launches)
     tg = grids.clone().requires_grad_()
-    cot = torch.randn(S * B, 3, H, W, device=dev)
-    (grid_sample_family(img, tg) * cot).sum().backward()
-    from ssde_tpu_torch.ops.warp_banded import grad_masks
+    (grid_sample_family(img, tg) * dout).sum().backward()
+    assert (warp_family_fwd.launches, warp_family_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = warp_family_bwd_reference(img, grids, dout)
+    torch.testing.assert_close(tg.grad, want, atol=1e-5 * want.abs().max().item(), rtol=0)
 
-    in_x, in_y = grad_masks(grids, H, W)
-    _, rdx, rdy = want
-    dwx = (cot * rdx).sum(1).reshape(S, B, H, W) * in_x
-    dwy = (cot * rdy).sum(1).reshape(S, B, H, W) * in_y
-    ref = torch.stack([dwx, dwy], -1)
-    torch.testing.assert_close(tg.grad, ref, atol=1e-5 * ref.abs().max().item(), rtol=0)
+
+def test_warp_family_on_the_border_and_pixel_centres(dev):
+    """Coordinates exactly on the image's border, beyond it, and on pixel
+    centres (integer unnormalised coordinates: the floor's ties), where the
+    masks and anchors must be the plain version's to the bit."""
+    S, B, H, W = 2, 2, 12, 20
+    g = torch.Generator(device=dev).manual_seed(5)
+    xs = torch.tensor([-1.5, -1.0, -1 + 1 / W, 1 - 1 / W, 1.0, 1.25], device=dev)
+    ys = torch.tensor([-1.0, -1 + 1 / H, 1 - 1 / H, 1.0, 2.0], device=dev)
+    centres_x = (2 * torch.arange(W, device=dev) + 1) / W - 1
+    centres_y = (2 * torch.arange(H, device=dev) + 1) / H - 1
+    pick = lambda v, n: v[torch.randint(len(v), (n,), device=dev, generator=g)]  # noqa: E731
+    n = S * B * H * W
+    gx = torch.where(torch.rand(n, device=dev, generator=g) < 0.5, pick(xs, n),
+                     pick(centres_x, n))
+    gy = torch.where(torch.rand(n, device=dev, generator=g) < 0.5, pick(ys, n),
+                     pick(centres_y, n))
+    grids = torch.stack([gx, gy], -1).reshape(S, B, H, W, 2).contiguous()
+    img = torch.rand(B, 3, H, W, device=dev, generator=g)
+    _check_warp(img, grids, torch.randn(S * B, 3, H, W, device=dev, generator=g))
+
+
+def test_warp_family_takes_planes_off_a_vector_boundary(dev):
+    """Every tensor one value into its buffer: the kernels take a pixel a
+    thread with scalar accesses there, and give what the aligned call gives."""
+    img, grids = _warp_inputs(dev, 3, 2, 16, 40, 1.2, seed=6)
+    dout = torch.randn(6, 3, 16, 40, device=dev)
+    shifted = [torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape) for t in
+               (img, grids, dout)]
+    for a, b in zip(shifted, (img, grids, dout)):
+        a.copy_(b)
+    out, dgrid = _check_warp(*shifted)
+    torch.testing.assert_close(out, warp_family_fwd(img, grids), atol=1e-6, rtol=0)
+    torch.testing.assert_close(dgrid, warp_family_bwd(img, grids, dout),
+                               atol=1e-6 * dgrid.abs().max().item(), rtol=0)
+
+
+def test_warp_family_backward_is_deterministic(dev):
+    """Each pixel sums its channels in a fixed order and owns its output:
+    a second backward is bit-identical."""
+    img, grids = _warp_inputs(dev, 4, 3, 96, 320, 1.0, seed=7)
+    dout = torch.randn(12, 3, 96, 320, device=dev)
+    first = warp_family_bwd(img, grids, dout)
+    assert torch.equal(first, warp_family_bwd(img, grids, dout))
 
 
 @pytest.mark.parametrize("G,B,H,W", [(1, 1, 2, 2), (3, 1, 3, 5), (6, 2, 17, 33),
@@ -392,26 +449,30 @@ def test_new_kernels_launch_on_the_current_stream(dev):
     img, grids = _warp_inputs(dev, 2, 2, 20, 40, 1.0)
     pred = torch.rand(4, 3, 20, 40, device=dev)
     gout = torch.randn(4, 20, 40, device=dev)
+    dout = torch.randn(4, 3, 20, 40, device=dev)
     want = (warp_family_reference(img, grids)[0], photometric_reference(pred, img),
-            photometric_bwd_reference(pred, img, gout))
-    before = (warp_family_fwd.launches, photometric_fwd.launches, photometric_bwd.launches)
+            photometric_bwd_reference(pred, img, gout),
+            warp_family_bwd_reference(img, grids, dout))
+    counters = (warp_family_fwd, photometric_fwd, photometric_bwd, warp_family_bwd)
+    before = tuple(f.launches for f in counters)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        got = (warp_family_fwd(img, grids)[0], photometric_fwd(pred, img),
-               photometric_bwd(pred, img, gout))
+        got = (warp_family_fwd(img, grids), photometric_fwd(pred, img),
+               photometric_bwd(pred, img, gout), warp_family_bwd(img, grids, dout))
     side.synchronize()
-    assert (warp_family_fwd.launches, photometric_fwd.launches,
-            photometric_bwd.launches) == tuple(b + 1 for b in before)
+    assert tuple(f.launches for f in counters) == tuple(b + 1 for b in before)
     torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
     torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=0)
     torch.testing.assert_close(got[2], want[2], atol=1e-4 * want[2].abs().max().item(), rtol=0)
+    torch.testing.assert_close(got[3], want[3], atol=1e-5 * want[3].abs().max().item(), rtol=0)
 
 
 def test_new_kernels_refuse_instead_of_falling_back(dev):
     img, grids = _warp_inputs(dev, 1, 2, 8, 8, 1.0)
     pred, targ = torch.rand(6, 3, 8, 8, device=dev), torch.rand(4, 3, 8, 8, device=dev)
-    before = (warp_family_fwd.launches, photometric_fwd.launches, photometric_bwd.launches)
+    counters = (warp_family_fwd, photometric_fwd, photometric_bwd, warp_family_bwd)
+    before = tuple(f.launches for f in counters)
     with pytest.raises(ValueError, match="multiple"):
         photometric_fwd(pred, targ)  # G = 6 is not a multiple of B = 4
     with pytest.raises(ValueError, match="contiguous"):
@@ -424,8 +485,16 @@ def test_new_kernels_refuse_instead_of_falling_back(dev):
         warp_family_fwd(img.bfloat16(), grids)
     with pytest.raises(ValueError, match="one device"):
         warp_family_fwd(img, grids.cpu())
-    assert (warp_family_fwd.launches, photometric_fwd.launches,
-            photometric_bwd.launches) == before
+    dout = torch.zeros(2, 3, 8, 8, device=dev)
+    with pytest.raises(ValueError, match="one device"):
+        warp_family_bwd(img, grids, dout.cpu())
+    with pytest.raises(TypeError):
+        warp_family_bwd(img, grids, dout.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        warp_family_bwd(img, grids, dout.transpose(2, 3))
+    with pytest.raises(ValueError, match="must be"):
+        warp_family_bwd(img, grids, dout[:1])
+    assert tuple(f.launches for f in counters) == before
 
 
 # ------------------------------------------------ windowed attention (#3, #4)
@@ -745,9 +814,9 @@ def test_shared_embedding_gradients_through_the_kernel(dev, C):
 def test_fusion_train_step_on_the_card(dev, variant, attention):
     """One fusion train step at 64x128, B=2, float32 (TF32 off) on the card
     and on the CPU from the same weights and batch: #3 and #4 launched 24
-    times each (none with conv units), the warp twice, the photometric
-    forward and backward once; finite losses, the card's within 1e-4 of the
-    CPU's."""
+    times each (none with conv units), the warp's forward and backward
+    twice, the photometric forward and backward once; finite losses, the
+    card's within 1e-4 of the CPU's."""
     from ssde_tpu_torch.config import Options
     from ssde_tpu_torch.data.pipeline import to_device
     from ssde_tpu_torch.data.synthetic import make_synthetic_batch
@@ -757,7 +826,8 @@ def test_fusion_train_step_on_the_card(dev, variant, attention):
     opts = Options(height=64, width=128, batch_size=2, compute_dtype="float32",
                    disable_attention=not attention)
     batch = make_synthetic_batch(2, 64, 128, frame_idxs=TRAIN_FRAMES, seed=0)
-    counters = (attend3_fwd, attend3_bwd, warp_family_fwd, photometric_fwd, photometric_bwd)
+    counters = (attend3_fwd, attend3_bwd, warp_family_fwd, warp_family_bwd, photometric_fwd,
+                photometric_bwd)
     loss = {}
     for where in ("cpu", dev):
         models = build_fusion_models(opts, variant, where, torch.Generator().manual_seed(0))
@@ -768,7 +838,7 @@ def test_fusion_train_step_on_the_card(dev, variant, attention):
         assert all(torch.isfinite(v) for v in losses.values())
     torch.cuda.synchronize()
     n = 24 if attention else 0
-    assert [f.launches - b for f, b in zip(counters, before)] == [n, n, 2, 1, 1]
+    assert [f.launches - b for f, b in zip(counters, before)] == [n, n, 2, 2, 1, 1]
     assert abs(loss[str(dev)] - loss["cpu"]) <= 1e-4 * abs(loss["cpu"])
 
 

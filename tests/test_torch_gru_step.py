@@ -56,7 +56,7 @@ from ssde_tpu_torch.models import make_gru
 from ssde_tpu_torch.models.common import init_weights_, sample_
 from ssde_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_dw, conv3x3_dx
 from ssde_tpu_torch.ops.photometric import photometric_bwd, photometric_fwd
-from ssde_tpu_torch.ops.warp_banded import warp_family_fwd
+from ssde_tpu_torch.ops.warp_banded import warp_family_bwd, warp_family_fwd
 from ssde_tpu_torch.scripts import train_gru
 from ssde_tpu_torch.train import steps, steps_gru, trainer
 from ssde_tpu_torch.train.state import TrainState
@@ -332,8 +332,8 @@ def test_entry_point_trains_an_epoch_on_the_cpu(capsys):
     """scripts/train_gru on the CPU: one synthetic epoch (4 steps), finite
     losses and val() lines, every parameter the step trains moved, and no
     kernel launch."""
-    counters = (conv3x3, conv3x3_dx, conv3x3_dw, warp_family_fwd, photometric_fwd,
-                photometric_bwd)
+    counters = (conv3x3, conv3x3_dx, conv3x3_dw, warp_family_fwd, warp_family_bwd,
+                photometric_fwd, photometric_bwd)
     before = [fn.launches for fn in counters]
     tr = train_gru.build_trainer(train_gru.MonodepthOptions().parse(_argv()))
     assert tr.device == torch.device("cpu") and tr.opt.frame_ids == [0, -1, 1]

@@ -52,7 +52,7 @@ from ssde_tpu.train.steps import mono_loss_fn as jax_mono_loss_fn
 from ssde_tpu_torch.data.pipeline import to_device
 from ssde_tpu_torch.data.synthetic import make_synthetic_batch
 from ssde_tpu_torch.ops.photometric import photometric_bwd, photometric_fwd
-from ssde_tpu_torch.ops.warp_banded import warp_family_fwd
+from ssde_tpu_torch.ops.warp_banded import warp_family_bwd, warp_family_fwd
 from ssde_tpu_torch.scripts import train_dpt
 from ssde_tpu_torch.train.state import TrainState, lr_at
 from ssde_tpu_torch.train.steps import (build_mono_models, mono_loss_fn,
@@ -201,7 +201,8 @@ def test_trainer_epoch_through_the_entry_point(tmp_path, capsys):
     """The entry point trains one synthetic epoch (8 steps at B=2, 32x64,
     bfloat16 autocast on the CPU): finite losses, changed parameters, the
     val() loss line, and no kernel launch on the CPU."""
-    before = (warp_family_fwd.launches, photometric_fwd.launches, photometric_bwd.launches)
+    before = (warp_family_fwd.launches, warp_family_bwd.launches, photometric_fwd.launches,
+              photometric_bwd.launches)
     argv = ["--model", "monodepth2", "--synthetic_data", "--height", "32", "--width", "64",
             "--batch_size", "2", "--num_epochs", "1", "--save_frequency", "2",
             "--log_frequency", "4", "--num_workers", "2", "--log_dir", str(tmp_path)]
@@ -220,7 +221,7 @@ def test_trainer_epoch_through_the_entry_point(tmp_path, capsys):
     after = trainer.models.encoder.state_dict()
     assert any(not torch.equal(start[k], after[k]) for k in start if k.endswith("weight"))
     assert trainer.models.encoder.encoder.bn1.num_batches_tracked.item() == 8
-    assert (warp_family_fwd.launches, photometric_fwd.launches,
+    assert (warp_family_fwd.launches, warp_family_bwd.launches, photometric_fwd.launches,
             photometric_bwd.launches) == before
 
 

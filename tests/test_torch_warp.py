@@ -1,7 +1,8 @@
 """The port's warp against the JAX package's: the plain exact warp
 (``ops/warp.grid_sample``), the family warp of the train step
-(``ops/warp_banded``, the port of Pallas kernel #7, here on its CPU twin)
-and the dispatch of every ``Options.warp_backend`` name to it.
+(``ops/warp_banded``, the port of Pallas kernel #7, forward and grid
+gradient, here on their CPU twins) and the dispatch of every
+``Options.warp_backend`` name to it.
 
 Images are NCHW in the port and NHWC in JAX; the tests transpose. Grid
 coordinates are kept off the integers (and off the clamp edges) where a
@@ -21,8 +22,9 @@ import jax.numpy as jnp
 from ssde_tpu.config import Options
 from ssde_tpu.ops.pallas.warp_banded import grid_sample_banded_planar
 from ssde_tpu.ops.warp import grid_sample as jax_grid_sample
-from ssde_tpu_torch.ops.warp import grid_sample, warp_family_reference
-from ssde_tpu_torch.ops.warp_banded import (grid_sample_family, warp_family_fwd)
+from ssde_tpu_torch.ops.warp import (grad_masks, grid_sample, warp_family_bwd_reference,
+                                     warp_family_reference)
+from ssde_tpu_torch.ops.warp_banded import grid_sample_family, warp_family_bwd, warp_family_fwd
 from ssde_tpu_torch.train.steps import WARP_BACKENDS, generate_images_pred
 
 
@@ -110,7 +112,8 @@ def test_family_warp_is_the_exact_warp_per_scale():
     S, B, H, W = 3, 2, 12, 20
     img = torch.from_numpy(rng.rand(B, 3, H, W).astype(np.float32))
     grids = torch.from_numpy(_grids(rng, S, B, H, W, spread=0.2))
-    out, rdx, rdy = warp_family_fwd(img, grids)
+    out, rdx, rdy = warp_family_reference(img, grids)
+    assert torch.equal(warp_family_fwd(img, grids), out)
     for s in range(S):
         torch.testing.assert_close(out[s * B:(s + 1) * B], grid_sample(img, grids[s]),
                                    atol=1e-6, rtol=0)
@@ -123,6 +126,78 @@ def test_family_warp_is_the_exact_warp_per_scale():
         minus, _, _ = warp_family_reference(img, grids - step)
         fd = (plus - minus) / (2 * eps)
         torch.testing.assert_close(fd, rd * scale, atol=2e-2, rtol=0)
+
+
+def test_family_warp_backward_matches_jax_grid_sample():
+    """The plain backward of the family warp against jax.grad of the exact
+    JAX grid_sample over the S scales (each scale's grid gets the gradient
+    of its own term), with coordinates inside the image and out of range;
+    none on a clamp edge, where the derivative of clip is undefined."""
+    rng = np.random.RandomState(6)
+    S, B, H, W = 3, 2, 12, 20
+    img = rng.rand(B, H, W, 3).astype(np.float32)
+    grids = _grids(rng, S, B, H, W, spread=0.2)
+    far = rng.rand(S, B, H, W) < 0.25  # a quarter of the pixels anywhere in [-1.6, 1.6]^2
+    grids[far] = rng.uniform(-1.6, 1.6, (far.sum(), 2)).astype(np.float32)
+    cot = rng.randn(S * B, 3, H, W).astype(np.float32)
+    ji = jnp.asarray(img)
+    cot_nhwc = jnp.asarray(cot.reshape(S, B, 3, H, W).transpose(0, 1, 3, 4, 2))
+
+    def loss(g):
+        return sum(jnp.sum(jax_grid_sample(ji, g[s]) * cot_nhwc[s]) for s in range(S))
+
+    want = np.asarray(jax.grad(loss)(jnp.asarray(grids)))
+    got = warp_family_bwd_reference(_nchw(img), torch.from_numpy(grids),
+                                    torch.from_numpy(cot)).numpy()
+    assert got.shape == (S, B, H, W, 2)
+    assert (want[far] == 0).any() and (want[~far] != 0).all()
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_family_warp_backward_is_the_residual_assembly(dtype):
+    """The plain backward is the assembly the residuals fed before the
+    backward became a kernel: masks, the channel sums of dout times rdx and
+    rdy, the stack; bit for bit, also through grid_sample_family."""
+    rng = np.random.RandomState(7)
+    S, B, H, W = 2, 3, 9, 14
+    img = torch.from_numpy(rng.rand(B, 3, H, W)).to(dtype)
+    grids = torch.from_numpy(rng.uniform(-1.3, 1.3, (S, B, H, W, 2))).to(dtype)
+    dout = torch.from_numpy(rng.randn(S * B, 3, H, W)).to(dtype)
+    _, rdx, rdy = warp_family_reference(img, grids)
+    in_x, in_y = grad_masks(grids, H, W)
+    dwx = (dout * rdx).sum(1).reshape(S, B, H, W)
+    dwy = (dout * rdy).sum(1).reshape(S, B, H, W)
+    want = torch.stack([dwx * in_x, dwy * in_y], -1)
+    assert torch.equal(warp_family_bwd_reference(img, grids, dout), want)
+    assert torch.equal(warp_family_bwd(img, grids, dout), want)
+    tg = grids.clone().requires_grad_()
+    (grid_sample_family(img, tg) * dout).sum().backward()
+    assert torch.equal(tg.grad, want)
+
+
+def test_family_warp_saves_no_residual():
+    """The autograd Function keeps the image and the grids for its backward,
+    nothing of the size of the output."""
+    rng = np.random.RandomState(8)
+    img = torch.from_numpy(rng.rand(2, 3, 8, 10).astype(np.float32))
+    grids = torch.from_numpy(_grids(rng, 3, 2, 8, 10)).requires_grad_()
+    out = grid_sample_family(img, grids)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 2
+    assert saved[0].data_ptr() == img.data_ptr() and torch.equal(saved[0], img)
+    assert saved[1].data_ptr() == grids.data_ptr() and torch.equal(saved[1], grids)
+    assert not saved[0].requires_grad
+
+
+def test_bench_warp_measures_only_on_a_card(monkeypatch):
+    """scripts/bench_warp times the card: without one its measuring process
+    raises, and nothing falls back to the CPU."""
+    from ssde_tpu_torch.scripts import bench_warp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card is available"):
+        bench_warp.main(["--measure"])
 
 
 def test_family_warp_has_no_image_gradient():
@@ -146,12 +221,27 @@ def test_family_warp_refusals():
         warp_family_fwd(img.transpose(2, 3), grids)
     with pytest.raises(ValueError, match="unsupported"):
         warp_family_fwd(torch.zeros(2, 3, 1, 8), grids)
+    dout = torch.zeros(2, 3, 8, 8)
+    with pytest.raises(TypeError):
+        warp_family_bwd(img, grids, dout.double())
+    with pytest.raises(ValueError, match="must be"):
+        warp_family_bwd(img, grids, torch.zeros(2, 3, 8, 7))
+    with pytest.raises(ValueError, match="must be"):
+        warp_family_bwd(img, torch.zeros(2, 2, 8, 8, 2), dout)  # S*B = 4 planes
+    with pytest.raises(ValueError, match="contiguous"):
+        warp_family_bwd(img, grids, dout.transpose(2, 3))
+    with pytest.raises(ValueError, match="batch"):
+        warp_family_bwd(img, torch.zeros(1, 3, 8, 8, 2), dout)
+    with pytest.raises(TypeError):
+        warp_family_bwd(img.half(), grids.half(), dout.half())
 
 
 def test_cpu_warp_never_counts_a_launch():
-    before = warp_family_fwd.launches
+    before = (warp_family_fwd.launches, warp_family_bwd.launches)
     warp_family_fwd(torch.zeros(1, 3, 4, 4), torch.zeros(2, 1, 4, 4, 2))
-    assert warp_family_fwd.launches == before
+    warp_family_bwd(torch.zeros(1, 3, 4, 4), torch.zeros(2, 1, 4, 4, 2),
+                    torch.zeros(2, 3, 4, 4))
+    assert (warp_family_fwd.launches, warp_family_bwd.launches) == before
 
 
 @pytest.mark.parametrize("backend", WARP_BACKENDS)
