@@ -232,6 +232,17 @@ Phases, each fatal on failure:
              folder's disparity exactly (4 frames, B=1), and raises on a
              folder without gru.ckpt; (c) evaluate_depth's main() on the mono
              .ckpt folder gives phase 20's 7 metrics exactly
+ 28. dp          data parallelism (ssde_tpu_torch.parallel.launch, one process a
+             mesh entry): (a) 3 float32 mono steps at B=12 over NCCL at world
+             size 1 on cuda:0, deterministic algorithms on, bit-identical to
+             the same steps in this process; (b) two gloo ranks sharing
+             cuda:0 (NCCL refuses two ranks on one card): one mono step at
+             B=12 and one GRU v10 step at B=8, T=3 against the one-process
+             step (networks float64, the loss float32 on the kernels; losses
+             1e-4 relative, gradients and BatchNorm statistics 1e-3 of each
+             tensor's max), the ranks bit-identical, each rank's launches,
+             step and gradient all-reduce ms and peak memory; (c) the mono
+             step over NCCL on two cards where the machine has two
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, each with its launches on the main path (for
@@ -256,7 +267,9 @@ the new shapes under ``options_b12_*`` and the two steps' ms under
 trainer's runs, is added to the GRU step's and the mono step's kernels and
 given alone as ``bench_launches``; phase 27's, the trainers resumed from
 .ckpt folders and the GRU evaluator on one, is added to the same kernels
-and given alone as ``native_launches``), its time, its plain
+and given alone as ``native_launches``; phase 28's, every data-parallel
+rank's steps, is added to the same kernels and given as ``dp_launches``,
+and by run and rank as ``dp_launches_per_rank``), its time, its plain
 version's (conv3x3_fwd: float32 serving at B=1, and under bf16_b8_* and
 f32_b8_* its bf16 and float32 bodies at a B=8 frame-step; conv3x3_dx and
 conv3x3_dw: bf16, and float32 under f32_b8_*; attend3_fwd and attend3_bwd:
@@ -648,6 +661,15 @@ def main() -> None:
     for name, n in bench_count.items():
         kernels[name]["launches"] += n
         kernels[name]["bench_launches"] = n
+    # phase 28's main path (the data-parallel ranks' steps) adds every rank's
+    # launches; each rank's are given under dp_launches_per_rank
+    dp_count, dp_per_rank = data_parallel(dev, card)
+    for name, n in dp_count.items():
+        if n:
+            kernels[name]["launches"] += n
+            kernels[name]["dp_launches"] = n
+            kernels[name]["dp_launches_per_rank"] = {
+                run: [counts[name] for counts in ranks] for run, ranks in dp_per_rank.items()}
     print(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s [{card}]")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -1143,12 +1165,12 @@ def mono_slice(dev):
     return counts
 
 
-def _selection(pinned=None, record=None, switches=None):
+def _selection(pinned=None, record=None, switches=None, rows=slice(None)):
     """``min_reprojection`` of the train step with its argmin over
     [identity, reprojection] (the reprojection alone under
-    --disable_automasking) recorded (``record``) or taken from ``pinned``,
-    one entry per scale; ``switches`` gets the pixels where the run's own
-    argmin differs from the pinned one."""
+    --disable_automasking) recorded (``record``) or taken from ``rows`` of
+    ``pinned``, one entry per scale; ``switches`` gets the pixels where the
+    run's own argmin differs from the pinned one."""
     import torch
 
     def select(reproj, ident, generator=None):
@@ -1157,7 +1179,7 @@ def _selection(pinned=None, record=None, switches=None):
         if pinned is None:
             record.append(idx.cpu())
         else:
-            want = pinned[len(switches)].to(idx.device)
+            want = pinned[len(switches)][rows].to(idx.device)
             switches.append(int((idx != want).sum()))
             idx = want
         n_ident = 0 if ident is None else ident.shape[1]
@@ -1666,15 +1688,18 @@ class _ReluPin:
 
     def __init__(self):
         self.masks, self.replay, self.i, self.flips = [], False, 0, 0
+        self.rows = slice(None)
 
-    def start(self, replay: bool) -> "_ReluPin":
-        self.replay, self.i, self.flips = replay, 0, 0
+    def start(self, replay: bool, rows: slice = slice(None)) -> "_ReluPin":
+        """A run; a replay takes ``rows`` of each recorded mask (a rank of a
+        data-parallel run, phase 28)."""
+        self.replay, self.i, self.flips, self.rows = replay, 0, 0, rows
         return self
 
     def relu(self, x):
         mask = x > 0
         if self.replay:
-            want = self.masks[self.i].to(mask.device)
+            want = self.masks[self.i][self.rows].to(mask.device)
             self.i += 1
             self.flips += int((mask != want).sum())
             mask = want
@@ -5165,13 +5190,14 @@ def bench_scripts(dev, card):
             launched = _read(counters)
             for k, v in launched.items():
                 total[k] += v
-            steps = 1 + 3 * (BENCH_FED_IMAGES // FED_B)  # the warm-up, then 3 rows of an epoch
+            steps = 1 + 4 * (BENCH_FED_IMAGES // FED_B)  # the warm-up, then 4 rows of an epoch
             want = {**dict.fromkeys(counters, 0), "warp_family_fwd": 2 * steps,
                     "warp_family_bwd": 2 * steps, "photometric_fwd": steps,
                     "photometric_bwd": steps}
             print(f"bench_loader {' '.join(argv)}: samples/s {rates}; launches {launched}, "
                   f"expected {want} [{card}]")
-            if launched != want or list(rates) != ["direct", "plain_put_prefetch", "direct2"] \
+            if launched != want or list(rates) != ["direct", "device_prefetch",
+                                                   "plain_put_prefetch", "direct2"] \
                     or not all(v > 0 for v in rates.values()):
                 fail(f"bench_loader {argv}: rates {rates}, launches {launched}")
     finally:
@@ -5270,6 +5296,439 @@ def bench_entry_points(dev, card):
     print(f"bench: phase 26 took {time.perf_counter() - phase0:.1f} s; launches of its main "
           f"path {({k: v for k, v in total.items() if v})} [{card}]")
     return total
+
+
+# phase 28: data parallelism (ssde_tpu_torch.parallel): the
+# mono and GRU v10 steps run by parallel.launch, one process per mesh entry.
+# (a) the NCCL path at world size 1 on cuda:0, DP_STEPS mono steps at B=12,
+# float32, under torch's deterministic algorithms, against the same steps in
+# this process: bit-identical parameters, Adam moments and BatchNorm
+# statistics. (b) two gloo ranks sharing cuda:0 (NCCL refuses two ranks on
+# one card; gloo takes CUDA tensors through the host): one mono step at
+# B=12 (6 a rank) and one GRU v10 step at B=8, T=3 (4 a rank) against the
+# one-process step, by phase 8's recipe: the preprocessing and the networks
+# in float64, the recurrent block, geometry, warp and photometric loss
+# float32 on the kernels, deterministic algorithms on. The float32 step's
+# gradients are ill-conditioned, and float32 work on a split batch rounds
+# otherwise than on the whole batch (reductions and the block's convs tile
+# by the batch's shape): with the preprocessing in float32 the split
+# batch's disparities moved off the whole batch's by float32's rounding,
+# enough to move a mono gradient past the bound on an H100; the block's
+# float32 convs flip a few relu values and automask pixels the same way,
+# which moves the per-pixel h0 gradients past it. So the GRU step takes the
+# one-process run's relu masks of the block and its automask argmin, each
+# rank its rows (phase 12's pins), and prints how many of its own differ.
+# Losses TOL_STEP_LOSS relative,
+# gradients and statistics TOL_CARD_VS_CPU of each tensor's max, the ranks
+# bit-identical. (c) (b)'s mono step over NCCL on two cards, where the
+# machine has them.
+DP_STEPS = 3
+DP_GRU_VERSION = "v10"
+# the sizes of the phase (a CPU rehearsal passes smaller ones): height,
+# width, the mono batch, the GRU batch and sequence length
+DP_SIZES = dict(h=H, w=W, mono_b=MONO_B, gru_b=GRU_B, gru_t=GRU_T)
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _dp_device(dev):
+    """``dev`` outside a process group; a rank's own device inside one."""
+    from ssde_tpu_torch import parallel
+
+    return parallel.current_mesh()[parallel.rank()] if parallel.in_group() else dev
+
+
+def _dp_sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _dp_peak_gib(dev):
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+
+
+def _dp_state(models, state, grads=False):
+    """A step's state as CPU tensors: parameters, Adam moments, buffers
+    (and the gradients)."""
+    params = [p for m in models.modules() for p in m.parameters()]
+    out = {"params": [p.detach().cpu() for p in params],
+           "moments": [st[k].cpu() for p in params
+                       for st in [state.optimizer.state.get(p, {})]
+                       for k in ("exp_avg", "exp_avg_sq") if k in st],
+           "buffers": [b.cpu() for m in models.modules() for b in m.buffers()]}
+    if grads:
+        out["grads"] = [None if p.grad is None else p.grad.cpu() for p in params]
+    return out
+
+
+def _dp_identical(a, b):
+    import torch
+
+    return all(len(a[k]) == len(b[k]) and all(torch.equal(x, y) for x, y in zip(a[k], b[k]))
+               for k in ("params", "moments", "buffers"))
+
+
+def dp_mono_steps(n_steps, dev=None, sizes=DP_SIZES):
+    """(a): ``n_steps`` float32 mono train steps at the mono batch of
+    ``sizes``, this process's rows of each seeded batch (all of them
+    outside a group) on ``dev`` (a rank: its own), deterministic algorithms
+    on; the state after, the step ms, the peak memory and the kernels'
+    launches."""
+    import torch
+
+    from ssde_tpu_torch import parallel
+    from ssde_tpu_torch.config import Options
+    from ssde_tpu_torch.data.pipeline import to_device
+    from ssde_tpu_torch.data.synthetic import make_synthetic_batch
+    from ssde_tpu_torch.train.state import TrainState
+    from ssde_tpu_torch.train.steps import build_mono_models, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = _gru_counters()
+    dev = _dp_device(dev)
+    h, w, B = sizes["h"], sizes["w"], sizes["mono_b"]
+    opts = Options(height=h, width=w, batch_size=B, compute_dtype="float32")
+    models = build_mono_models(opts, dev, torch.Generator().manual_seed(SEED))
+    state = TrainState(models.parameters(), 1e-4, 15, 1)
+    parallel.replicate_(models.modules())
+    gen = torch.Generator(dev).manual_seed(SEED)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    ms, nondeterministic = [], []
+    with _deterministic(nondeterministic):
+        for i in range(n_steps):
+            rows = parallel.shard_batch(make_synthetic_batch(B, h, w, seed=SEED + i),
+                                        parallel.rank(), parallel.world_size())
+            _dp_sync(dev)
+            t0 = time.perf_counter()
+            train_step(models, state, to_device(rows, dev), gen)
+            _dp_sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return {**_dp_state(models, state), "ms": ms, "peak_gib": _dp_peak_gib(dev),
+            "launches": {k: fn.launches for k, fn in counters.items()},
+            "nondeterministic": nondeterministic}
+
+
+@contextlib.contextmanager
+def _deterministic(seen):
+    """torch's deterministic algorithms (cuDNN's too) for the duration: the
+    float32 step is not bit-reproducible on the card without them (the
+    index_add of resize_bilinear's backward, cuDNN's algorithms), and its
+    ill-conditioned gradients amplify the difference. An operation that has
+    none warns and runs as it is; ``seen`` gets those warnings."""
+    import warnings
+
+    import torch
+
+    keep = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+        seen.extend(sorted({str(w.message).split(".")[0] for w in caught}))
+    finally:
+        torch.use_deterministic_algorithms(keep[0])
+        torch.backends.cudnn.deterministic = keep[1]
+
+
+def _dp_gru_models(opts, dev, pin):
+    """GRU v10 at the seed, a non-zero h0, the networks in float64 and the
+    block float32 (phase 12's recipe: the kernels take float32), its relus
+    through ``pin`` (a :class:`_ReluPin`)."""
+    import torch
+
+    import ssde_tpu_torch.train.steps_gru as steps_gru
+    from ssde_tpu_torch.models.common import sample_
+
+    models = steps_gru.build_gru_models(opts, dev, torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    for p in models.h0_parameters():
+        sample_(p, gen, lambda t: t.normal_(0.0, 0.1, generator=gen))
+    for m in (models.encoder, models.depth, models.pose_encoder, models.pose):
+        m.double()
+    block_forward = models.gru.forward
+
+    def forward(dec, hidden):
+        with pin.active():
+            return block_forward({k: v.float() for k, v in dec.items()}, hidden)
+
+    models.gru.forward = forward
+    return models
+
+
+def _dp_one_step(models, state, batch, preprocess, loss_fn, dev, select=None):
+    """One train step of ``models`` on a device batch with the preprocessing
+    and the networks in float64 and the geometry, warp and loss in float32
+    (phase 8's recipe), ``select`` in place of the automask's minimum:
+    preprocess, forward, backward, ``state.apply_gradients`` (the gradient
+    mean over the ranks); the losses (their mean over the ranks) and the
+    step's ms."""
+    import torch
+
+    import ssde_tpu_torch.train.steps as steps
+    from ssde_tpu_torch import parallel
+
+    _dp_sync(dev)
+    t0 = time.perf_counter()
+    batch = {k: v.double() / 255 if v.dtype == torch.uint8 else
+             v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    inputs, extra = preprocess(batch)
+    inputs = {k: v.double() if k.startswith("color_aug") else
+              v.float() if v.is_floating_point() else v for k, v in inputs.items()}
+    models.train()
+    state.optimizer.zero_grad(set_to_none=True)
+    patched = {"min_reprojection": select or steps.min_reprojection,
+               "_full": lambda t: t.float()}
+    plain = {k: getattr(steps, k) for k in patched}
+    try:
+        for k, v in patched.items():
+            setattr(steps, k, v)
+        _, losses, _ = loss_fn(models, inputs, *extra)
+        losses["loss"].backward()
+    finally:
+        for k, v in plain.items():
+            setattr(steps, k, v)
+    state.apply_gradients()
+    losses = {k: v.detach() for k, v in losses.items()}
+    parallel.all_reduce_mean_(list(losses.values()))
+    _dp_sync(dev)
+    return {k: float(v) for k, v in losses.items()}, (time.perf_counter() - t0) * 1e3
+
+
+def dp_held_steps(pins, dev=None, sizes=DP_SIZES):
+    """(b) and (c): one mono step and one GRU v10 step at ``sizes`` of this
+    process's rows of seeded batches (all of them outside a group) on
+    ``dev`` (a rank: its own), by :func:`_dp_one_step`; for each the
+    losses, the state with the gradients, the step's ms, the gradient
+    all-reduce's ms (the same tensors once more, outside the step), the
+    peak memory and the kernels' launches. The GRU step's block relu masks
+    and automask argmin are written to the file ``pins`` outside a group,
+    and a rank replays its rows of them."""
+    import torch
+
+    import ssde_tpu_torch.train.steps as steps
+    import ssde_tpu_torch.train.steps_gru as steps_gru
+    from ssde_tpu_torch import parallel
+    from ssde_tpu_torch.config import Options
+    from ssde_tpu_torch.data.pipeline import collate, to_device
+    from ssde_tpu_torch.data.synthetic import SyntheticSeqDataset, make_synthetic_batch
+    from ssde_tpu_torch.train.state import TrainState
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = _gru_counters()
+    dev = _dp_device(dev)
+    r, n = parallel.rank(), parallel.world_size()
+    h, w = sizes["h"], sizes["w"]
+    mono = Options(height=h, width=w, batch_size=sizes["mono_b"], compute_dtype="float32")
+    gru = Options(height=h, width=w, batch_size=sizes["gru_b"], len_sequence=sizes["gru_t"],
+                  gru_version=DP_GRU_VERSION, compute_dtype="float32")
+    ds = SyntheticSeqDataset(h, w, n=gru.len_sequence, length=gru.batch_size, seed=SEED)
+
+    def mono_models():
+        models = steps.build_mono_models(mono, dev, torch.Generator().manual_seed(SEED))
+        for m in models.modules():
+            m.double()
+        return models
+
+    def gru_inputs(batch):
+        inputs, B, T = steps_gru.preprocess_gru_batch(batch, gru)
+        return inputs, (B, T)
+
+    pin, selected, switches = _ReluPin(), [], []
+    if parallel.in_group():  # B-major rows: a rank's sequences, every frame
+        k = gru.batch_size // n
+        recorded = torch.load(pins, mmap=True)
+        pin.masks = recorded["relu"]
+        pin.start(replay=True, rows=slice(r * k, (r + 1) * k))
+        select = _selection(recorded["argmin"], switches=switches,
+                            rows=slice(r * k * gru.len_sequence, (r + 1) * k * gru.len_sequence))
+    else:
+        pin.start(replay=False)
+        select = _selection(record=selected)
+
+    runs = {  # name: (models, host batch, preprocess, loss function, automask)
+        "mono": (mono_models, make_synthetic_batch(mono.batch_size, h, w, seed=SEED),
+                 lambda b: (steps.preprocess_train(b, mono), ()), steps.mono_loss_fn, None),
+        "gru": (lambda: _dp_gru_models(gru, dev, pin), collate([ds[i] for i in range(len(ds))]),
+                gru_inputs, steps_gru.gru_loss_fn, select),
+    }
+    out = {}
+    nondeterministic = []
+    for name, (build, batch, preprocess, loss_fn, select) in runs.items():
+        models = build()
+        state = TrainState(models.parameters(), 1e-4, 15, 1)
+        parallel.replicate_(models.modules())
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        for fn in counters.values():
+            fn.launches = 0
+        with _deterministic(nondeterministic):
+            losses, ms = _dp_one_step(models, state,
+                                      to_device(parallel.shard_batch(batch, r, n), dev),
+                                      preprocess, loss_fn, dev, select)
+        launched = {k: fn.launches for k, fn in counters.items()}
+        grads = [p.grad.clone() for p in state.optimizer.param_groups[0]["params"]
+                 if p.grad is not None]
+        _dp_sync(dev)
+        t0 = time.perf_counter()
+        parallel.all_reduce_mean_(grads)
+        _dp_sync(dev)
+        out[name] = {**_dp_state(models, state, grads=True), "losses": losses, "ms": ms,
+                     "all_reduce_ms": (time.perf_counter() - t0) * 1e3,
+                     "grad_mib": sum(g.numel() * g.element_size() for g in grads) / 2**20,
+                     "peak_gib": _dp_peak_gib(dev), "launches": launched,
+                     "nondeterministic": sorted(set(nondeterministic))}
+        del models, state, grads
+    if not parallel.in_group():
+        torch.save({"relu": pin.masks, "argmin": selected}, pins)
+    out["gru"].update(relu_flips=pin.flips, automask_switches=sum(switches),
+                      relu_values=sum(m.numel() for m in pin.masks))
+    return out
+
+
+def _dp_hold(label, got, want):
+    """The worst of ``got`` (a rank of a data-parallel run) against ``want``
+    (the one-process run): (loss rel, gradient rel, statistics rel)."""
+    lrel = max(abs(got["losses"][k] - v) / abs(v) for k, v in want["losses"].items())
+    grels = [(_rel(g.double(), w.double()), i, tuple(w.shape))
+             for i, (g, w) in enumerate(zip(got["grads"], want["grads"]))
+             if w is not None and w.abs().max() > 0]
+    grel, worst, shape = max(grels)
+    brel = max(_rel(g.double(), w.double()) for g, w in zip(got["buffers"], want["buffers"])
+               if w.is_floating_point() and w.abs().max() > 0)
+    ok = (lrel <= TOL_STEP_LOSS and grel <= TOL_CARD_VS_CPU and brel <= TOL_CARD_VS_CPU
+          and len(got["grads"]) == len(want["grads"])
+          and all((g is None) == (w is None) for g, w in zip(got["grads"], want["grads"])))
+    print(f"  {label}: loss {got['losses']['loss']:.8f} (one process "
+          f"{want['losses']['loss']:.8f}), worst rel over the losses {lrel:.3e} (bound "
+          f"{TOL_STEP_LOSS}), gradients {grel:.3e} (parameter {worst} of {len(grels)}, "
+          f"{shape}) and BatchNorm statistics {brel:.3e} of each tensor's max (bound "
+          f"{TOL_CARD_VS_CPU}); without a deterministic algorithm: "
+          f"{want['nondeterministic'] or 'none'}")
+    return ok
+
+
+def data_parallel(dev, card, sizes=DP_SIZES):
+    """Phase 28: (a) NCCL at world size 1, (b) two gloo ranks on cuda:0,
+    (c) NCCL on two cards where present; returns the ranks' kernel launches
+    summed, and per run and rank. On the CPU (``dev``, a rehearsal at small
+    ``sizes``) (a) runs over gloo and (c) is skipped."""
+    import torch
+
+    from ssde_tpu_torch import parallel
+
+    phase0 = time.perf_counter()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+    total, per_rank = {}, {}
+    # (a) NCCL, world size 1. cuBLAS is deterministic only with a fixed
+    # workspace, which a process reads when it first uses cuBLAS: the ranks
+    # take it from the environment
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    t0 = time.perf_counter()
+    ranks = parallel.launch(dp_mono_steps, [dev], DP_STEPS, None, sizes)
+    t_launch = time.perf_counter() - t0
+    here = dp_mono_steps(DP_STEPS, dev, sizes)
+    ok = _dp_identical(ranks[0], here)
+    print(f"dp (a) {'NCCL' if cuda else 'gloo'} world size 1 on {dev}: {DP_STEPS} mono steps "
+          f"at B={sizes['mono_b']}, {sizes['h']}x{sizes['w']}, float32, "
+          f"deterministic algorithms: parameters, Adam moments and BatchNorm statistics "
+          f"bit-identical to the same steps in this process: {ok}; step ms world 1 "
+          + ", ".join(f"{t:.1f}" for t in ranks[0]["ms"]) + ", in process "
+          + ", ".join(f"{t:.1f}" for t in here["ms"])
+          + f"; peak {ranks[0]['peak_gib']:.2f} GiB (in process {here['peak_gib']:.2f}); "
+          f"launch {t_launch:.1f} s; launches {_nonzero(ranks[0]['launches'])}; operations "
+          f"without a "
+          f"deterministic algorithm: {here['nondeterministic'] or 'none'} [{card}]")
+    if not ok:
+        fail("dp (a): the NCCL world-1 steps differ from the in-process steps")
+    per_rank["a"] = [ranks[0]["launches"]]
+    # (b) two gloo ranks sharing cuda:0, against one process
+    folder = tempfile.mkdtemp(prefix="ssde_dp_pins_")
+    pins = os.path.join(folder, "pins.pt")
+    try:
+        want = dp_held_steps(pins, dev, sizes)
+        t0 = time.perf_counter()
+        ranks = parallel.launch(dp_held_steps, [dev, dev], pins, None, sizes, backend="gloo")
+        t_launch = time.perf_counter() - t0
+        if cuda and torch.cuda.device_count() >= 2:
+            two_cards = parallel.launch(dp_held_steps,
+                                        [torch.device("cuda", i) for i in (0, 1)], pins, None,
+                                        sizes)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    ok = True
+    print(f"dp (b) gloo, 2 ranks on {dev} (launch {t_launch:.1f} s), each step against the "
+          f"one-process step; preprocessing and networks float64, the GRU block, geometry, "
+          f"warp and loss float32; the GRU step takes the one-process run's relu masks of the "
+          f"block ({want['gru']['relu_values']} values) and automask argmin: its own differ at "
+          + ", ".join(f"rank {i} {x['gru']['relu_flips']} and {x['gru']['automask_switches']}"
+                      for i, x in enumerate(ranks)) + f" [{card}]:")
+    for name in ("mono", "gru"):
+        same = _dp_identical(ranks[0][name], ranks[1][name])
+        held = _dp_hold(f"{name} rank 0 vs one process", ranks[0][name], want[name])
+        ok = ok and same and held
+        print(f"  {name}: ranks bit-identical {same}; step ms "
+              + ", ".join(f"rank {r} {x[name]['ms']:.1f}" for r, x in enumerate(ranks))
+              + f" (one process {want[name]['ms']:.1f}); gradient all-reduce over gloo "
+              + ", ".join(f"{x[name]['all_reduce_ms']:.1f}" for x in ranks)
+              + f" ms for {ranks[0][name]['grad_mib']:.0f} MiB; peak "
+              + ", ".join(f"{x[name]['peak_gib']:.2f}" for x in ranks)
+              + f" GiB (one process {want[name]['peak_gib']:.2f}); launches "
+              + "; ".join(f"rank {r} {_nonzero(x[name]['launches'])}"
+                          for r, x in enumerate(ranks)))
+        per_rank[f"b_{name}"] = [x[name]["launches"] for x in ranks]
+    if not ok:
+        fail("dp (b): the two gloo ranks disagree with each other or with one process")
+    # (c) NCCL over two cards, where there are two
+    if cuda and torch.cuda.device_count() >= 2:
+        ranks = two_cards
+        same = _dp_identical(ranks[0]["mono"], ranks[1]["mono"])
+        print(f"dp (c) NCCL on cuda:0 and cuda:1: ranks bit-identical {same}; step ms "
+              + ", ".join(f"{x['mono']['ms']:.1f}" for x in ranks) + "; all-reduce ms "
+              + ", ".join(f"{x['mono']['all_reduce_ms']:.1f}" for x in ranks))
+        held = _dp_hold("mono rank 0 vs one process", ranks[0]["mono"], want["mono"])
+        if not (same and held):
+            fail("dp (c): NCCL over two cards disagrees")
+        per_rank["c"] = [x["mono"]["launches"] for x in ranks]
+    else:
+        print(f"dp (c) not run: the machine has {torch.cuda.device_count()} card")
+        if cuda:
+            print("  (NCCL across cards is not measured here; (a) and (b) ran)")
+    for launches in per_rank.values():
+        for counts in launches:
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    want_launch = {"a": {"warp_family_fwd": 2 * DP_STEPS, "warp_family_bwd": 2 * DP_STEPS,
+                         "photometric_fwd": DP_STEPS, "photometric_bwd": DP_STEPS},
+                   "b_mono": {"warp_family_fwd": 2, "warp_family_bwd": 2,
+                              "photometric_fwd": 1, "photometric_bwd": 1},
+                   "b_gru": _gru_step_launches(DP_GRU_VERSION, sizes["gru_t"])}
+    want_launch["c"] = want_launch["b_mono"]
+    if not cuda:  # the plain versions run on the CPU
+        want_launch = {run: {} for run in want_launch}
+    for run, launches in per_rank.items():
+        for counts in launches:
+            want_counts = {k: want_launch[run].get(k, 0) for k in counts}
+            if counts != want_counts:
+                fail(f"dp ({run}): a rank launched {counts}, expected {want_counts}")
+    print(f"dp: phase 28 took {time.perf_counter() - phase0:.1f} s; launches of its main path "
+          f"(every rank) {_nonzero(total)} [{card}]")
+    return total, per_rank
 
 
 if __name__ == "__main__":

@@ -20,6 +20,8 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
+from ..parallel.mesh import shard_rows
+
 
 def collate(items):
     """Stack a list of item dicts into one batch dict of numpy arrays;
@@ -33,11 +35,15 @@ def collate(items):
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """numpy batch -> tensors on ``device``; for a CUDA device from pinned
-    host memory with ``non_blocking`` copies on the current stream."""
+    host memory with ``non_blocking`` copies on the current stream. Tensors
+    already on ``device`` are kept."""
     device = torch.device(device)
     pin = device.type == "cuda"
     out = {}
     for k, v in batch.items():
+        if isinstance(v, torch.Tensor):  # already sent (parallel.device_prefetch)
+            out[k] = v.to(device)
+            continue
         t = torch.from_numpy(np.ascontiguousarray(v))
         out[k] = (t.pin_memory().to(device, non_blocking=True) if pin
                   else t.to(device))
@@ -59,11 +65,17 @@ class Loader:
     numpy and PIL: a forked child cannot use the parent's CUDA context, and
     torch raises there if it tries. The trainers keep threads, as the JAX
     trainers do. An exception in a worker, thread or process, is raised again
-    in the consumer."""
+    in the consumer.
+
+    ``shard=(rank, world)`` is one rank of a data-parallel mesh: every rank
+    draws the same order and the same global batches of ``batch_size``
+    (``len`` is theirs) and decodes only its contiguous rows of each
+    (``parallel.shard_rows``), so the ranks' batches put together are the
+    one-process batches."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 4, prefetch: int = 2,
-                 seed: int = 0, use_processes: bool = False):
+                 seed: int = 0, use_processes: bool = False, shard=(0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -71,6 +83,10 @@ class Loader:
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.use_processes = use_processes
+        self.shard = tuple(shard)
+        if batch_size % self.shard[1]:
+            raise ValueError(f"a batch of {batch_size} does not split over "
+                             f"{self.shard[1]} ranks")
         self._rng = random.Random(seed)
 
     def __len__(self):
@@ -86,7 +102,8 @@ class Loader:
         bs = self.batch_size
         stop = len(idx) - (len(idx) % bs) if self.drop_last else len(idx)
         for i in range(0, stop, bs):
-            yield idx[i:i + bs]
+            batch = idx[i:i + bs]
+            yield batch[shard_rows(len(batch), *self.shard)]
 
     def _make_pool(self):
         if self.use_processes:

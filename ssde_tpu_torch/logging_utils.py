@@ -44,7 +44,7 @@ class Writers:
 
     def __init__(self, log_path: str, modes=("train", "val")):
         self.writers = {}
-        summary_writer = _summary_writer_cls()
+        summary_writer = _summary_writer_cls() if modes else None
         if summary_writer is not None:
             for mode in modes:
                 self.writers[mode] = summary_writer(os.path.join(log_path, mode))

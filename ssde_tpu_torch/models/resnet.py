@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.dist import all_reduce_sum, world_size
 from .common import sample_
 
 _STAGES = {
@@ -45,6 +46,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     training but updates nothing: the forward that a checkpointed region
     (``torch.utils.checkpoint``) runs again in the backward must not move the
     statistics a second time.
+
+    Inside a process group of more than one rank (data parallelism,
+    :mod:`ssde_tpu_torch.parallel`) training mode normalises with the
+    statistics of the global batch, as the JAX step's BatchNorm over a
+    sharded batch axis does (:meth:`_forward_global`).
     """
 
     def __init__(self, num_features: int, device=None):
@@ -54,6 +60,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if world_size() > 1:
+            return self._forward_global(x)
         if self.stats_frozen:  # the same kernel on copies of the statistics
             return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
                                 self.weight, self.bias, True, self.momentum, self.eps)
@@ -68,6 +76,33 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_(new_var - (new_var - 0.9 * self.running_var) / n)
             self.num_batches_tracked.add_(1)
         return out
+
+    def _forward_global(self, x):
+        """Training mode over the ranks' batches together: the per-channel
+        sum and count summed over the ranks give the mean, then the summed
+        squared deviations from it the biased variance (two passes), both in
+        float32 or wider, also under bf16 autocast, and through the
+        differentiable all-reduce so that each rank's backward counts every
+        rank's loss. The running statistics take flax's update from the
+        global figures, identical on every rank; not while ``stats_frozen``.
+        Collectives run in the same order on every rank: every rank runs the
+        same modules."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = x.shape[1]
+        sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)),
+                                         xf.new_full((1,), x.numel() // c)]))
+        mean = sums[:c] / sums[c]
+        centred = xf - mean.view(1, c, 1, 1)
+        var = all_reduce_sum((centred * centred).sum((0, 2, 3))) / sums[c]
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        out = centred * scale.view(1, c, 1, 1) + self.bias.view(1, c, 1, 1)
+        if not self.stats_frozen:
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * var)
+                self.num_batches_tracked.add_(1)
+        return out.to(x.dtype)
 
 
 @contextlib.contextmanager

@@ -13,6 +13,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..parallel.dist import rank, world_size
 from .image import reflect_pad_2d
 
 _C1 = 0.01**2
@@ -64,15 +65,23 @@ def min_reprojection(reproj: torch.Tensor, ident: Optional[torch.Tensor],
     (B, F, H, W), and the automask (1 where a reprojection won).
 
     ``generator`` draws the 1e-5 tie-break noise on the identity maps
-    (reference trainer.py:592-594); None adds none. ``torch.amin`` shares
+    (reference trainer.py:592-594), over the global batch inside a process
+    group; None adds none. ``torch.amin`` shares
     the gradient among equal minima, as ``jnp.min`` does.
     """
     n_ident = 0
     combined = reproj
     if ident is not None:
         if generator is not None:
-            noise = torch.randn(ident.shape, generator=generator,
-                                device=generator.device, dtype=ident.dtype)
+            # a rank of a data-parallel mesh draws the global batch's noise
+            # and keeps its rows, as the JAX step's noise over the global
+            # batch is sharded with it
+            n, r = world_size(), rank()
+            noise = torch.randn((n * ident.shape[0],) + tuple(ident.shape[1:]),
+                                generator=generator, device=generator.device,
+                                dtype=ident.dtype)
+            if n > 1:
+                noise = noise[r * ident.shape[0]:(r + 1) * ident.shape[0]]
             ident = ident + noise.to(ident.device) * 1e-5
         n_ident = ident.shape[1]
         combined = torch.cat([ident, reproj], 1)

@@ -12,12 +12,13 @@ step's demand (samples/s x 3 frames a sample for the mono trainer).
     python -m ssde_tpu_torch.scripts.bench_loader --fed [--cache] [--fed_workers 2]
 
 ``--fed`` feeds the port's mono train step (ResNet18, bf16 autocast) from
-the Loader for ``--fed_epochs`` epochs a row: ``direct`` is the trainer's
-own path (each host batch to the card from pinned memory, then the step),
-``plain_put_prefetch`` keeps two batches already sent to the card ahead of
-the step, and ``direct2`` repeats ``direct``. The JAX script's
-``device_prefetch`` row belongs to the multi-GPU mesh, which the port does
-not have yet. ``--cache`` reads through the decode-once uint8 cache
+the Loader for ``--fed_epochs`` epochs a row, in the JAX script's order:
+``direct`` is the one-card trainer's path (each host batch to the card from
+pinned memory, then the step), ``device_prefetch`` the data-parallel
+trainer's handoff (``parallel.device_prefetch`` with its double buffer
+forced on: batch N+1 sent before step N runs), ``plain_put_prefetch`` a
+plain two-batch buffer of batches already sent, and ``direct2`` repeats
+``direct``. ``--cache`` reads through the decode-once uint8 cache
 (``data/kitti.load_resized_uint8``) and first reports its priming rate.
 Prints the versions and the card's name and power limit first.
 """
@@ -114,6 +115,7 @@ def bench_fed(args, paths, tmp, device, card):
     samples/s by row."""
     from ..config import Options
     from ..data.pipeline import Loader, collate, to_device
+    from ..parallel import device_prefetch
     from ..train.state import TrainState
     from ..train.steps import build_mono_models, train_step
     from ..train.trainer import device_batch
@@ -168,8 +170,7 @@ def bench_fed(args, paths, tmp, device, card):
             yield buf.popleft()
 
     run("direct", direct)
-    print("loader-fed step [device_prefetch]: not run: it belongs to the multi-GPU mesh "
-          "(parallel/mesh.py), which waits for ROADMAP.md Queue 1, item 12", flush=True)
+    run("device_prefetch", lambda: device_prefetch(loader, device, explicit=True))
     run("plain_put_prefetch", plain_prefetch)
     run("direct2", direct)
     return rates

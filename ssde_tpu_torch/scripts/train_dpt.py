@@ -20,8 +20,11 @@ folder, or from the JAX package's folder of ``.ckpt`` files and ``adam.ckpt``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 from ..config import MonodepthOptions, Options
-from ..train.trainer import AttentionTrainer, DPTTrainer, FusionV3Trainer, Trainer, TrainerBase
+from ..train.trainer import (AttentionTrainer, DPTTrainer, FusionV3Trainer, Trainer, TrainerBase,
+                             train_main)
 
 TRAINERS = {"monodepth2": Trainer, "rn_encoder_with_attention": AttentionTrainer,
             "rn_fusion": FusionV3Trainer, "dpt_gru": DPTTrainer}
@@ -34,10 +37,13 @@ def build_trainer(opts: Options, device=None) -> TrainerBase:
     return TRAINERS[opts.model](opts, device)
 
 
-def main(argv=None) -> TrainerBase:
-    trainer = build_trainer(MonodepthOptions().parse(argv))
-    trainer.train()
-    return trainer
+def main(argv=None) -> Optional[TrainerBase]:
+    """Train; the trainer, or None where ``--num_devices`` gives a mesh of
+    more than one device (one process per device, ``train.trainer.train_main``)."""
+    opts = MonodepthOptions().parse(argv)
+    if opts.model not in TRAINERS:
+        raise ValueError(f"unknown --model {opts.model}")
+    return train_main(TRAINERS[opts.model], opts)
 
 
 if __name__ == "__main__":

@@ -15,8 +15,10 @@ the mono modules.
 
 from __future__ import annotations
 
+from typing import Optional
+
 from ..config import MonodepthOptions, Options
-from ..train.trainer import FusionTrainer
+from ..train.trainer import FusionTrainer, train_main
 
 
 def build_trainer(opts: Options, device=None) -> FusionTrainer:
@@ -25,10 +27,10 @@ def build_trainer(opts: Options, device=None) -> FusionTrainer:
     return FusionTrainer(opts, device)
 
 
-def main(argv=None) -> FusionTrainer:
-    trainer = build_trainer(MonodepthOptions().parse(argv))
-    trainer.train()
-    return trainer
+def main(argv=None) -> Optional[FusionTrainer]:
+    """Train; the trainer, or None where ``--num_devices`` gives a mesh of
+    more than one device (one process per device, ``train.trainer.train_main``)."""
+    return train_main(FusionTrainer, MonodepthOptions().parse(argv))
 
 
 if __name__ == "__main__":

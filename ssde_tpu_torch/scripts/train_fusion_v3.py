@@ -16,8 +16,10 @@ mono modules.
 
 from __future__ import annotations
 
+from typing import Optional
+
 from ..config import MonodepthOptions, Options
-from ..train.trainer import FusionV3Trainer
+from ..train.trainer import FusionV3Trainer, train_main
 
 
 def build_trainer(opts: Options, device=None) -> FusionV3Trainer:
@@ -26,10 +28,10 @@ def build_trainer(opts: Options, device=None) -> FusionV3Trainer:
     return FusionV3Trainer(opts, device)
 
 
-def main(argv=None) -> FusionV3Trainer:
-    trainer = build_trainer(MonodepthOptions().parse(argv))
-    trainer.train()
-    return trainer
+def main(argv=None) -> Optional[FusionV3Trainer]:
+    """Train; the trainer, or None where ``--num_devices`` gives a mesh of
+    more than one device (one process per device, ``train.trainer.train_main``)."""
+    return train_main(FusionV3Trainer, MonodepthOptions().parse(argv))
 
 
 if __name__ == "__main__":

@@ -17,7 +17,10 @@ frames [0, -1, 1], bf16 autocast by default, on the card unless
 
 from __future__ import annotations
 
+from typing import Optional
+
 from ..config import MonodepthOptions, Options
+from ..train.trainer import train_main
 from ..train.trainer_gru import GRUTrainer
 
 
@@ -26,10 +29,10 @@ def build_trainer(opts: Options, device=None) -> GRUTrainer:
     return GRUTrainer(opts, device)
 
 
-def main(argv=None) -> GRUTrainer:
-    trainer = build_trainer(MonodepthOptions().parse(argv))
-    trainer.train()
-    return trainer
+def main(argv=None) -> Optional[GRUTrainer]:
+    """Train; the trainer, or None where ``--num_devices`` gives a mesh of
+    more than one device (one process per device, ``train.trainer.train_main``)."""
+    return train_main(GRUTrainer, MonodepthOptions().parse(argv))
 
 
 if __name__ == "__main__":

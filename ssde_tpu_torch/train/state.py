@@ -14,6 +14,8 @@ from typing import Iterable, List
 
 import torch
 
+from ..parallel.dist import all_reduce_mean_, in_group
+
 
 def lr_at(step: int, learning_rate: float, scheduler_step_size: int,
           steps_per_epoch: int, gamma: float = 0.1) -> float:
@@ -55,8 +57,15 @@ class TrainState:
         self.frozen.extend(params)
 
     def apply_gradients(self) -> None:
+        """The scheduled rate, one Adam step, the count. Inside a process
+        group every gradient that is not None (the frozen ones dropped
+        first) is first replaced by its mean over the ranks: the JAX step's
+        gradient AllReduce over the mesh, for every trainer."""
         for p in self.frozen:
             p.grad = None
+        if in_group():
+            all_reduce_mean_([p.grad for group in self.optimizer.param_groups
+                              for p in group["params"] if p.grad is not None])
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr
         self.optimizer.step()

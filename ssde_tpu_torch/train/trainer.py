@@ -19,9 +19,20 @@ per-module ``.pth`` layout (:mod:`ssde_tpu_torch.checkpoint`);
 folder exists. ``--matmul_precision float32`` (or ``highest``) turns TF32
 off for cuDNN and cuBLAS, process-wide. ``--profile_steps N`` traces steps
 5 .. 5+N with ``torch.profiler`` into ``<log_dir>/<model_name>/profile/``
-(:class:`ProfileWindow`). ``--num_devices`` 0 (all) and 1 train on one
-card; more raise, as multi-GPU training is not ported. There is no
-``device_prefetch`` yet.
+(:class:`ProfileWindow`).
+
+``--num_devices`` picks the data-parallel mesh by the JAX rule
+(:func:`train_mesh`: 0 every visible card, or ``--no_cuda`` one CPU rank;
+clamped to a count that divides ``--batch_size``). One device trains in
+this process. More train one process per device (:func:`train_main`
+through :func:`ssde_tpu_torch.parallel.launch`): each rank builds the same
+seeded models, takes rank 0's parameters and buffers, decodes its rows of
+every global batch (``Loader(shard=...)``), feeds them through
+``parallel.device_prefetch``, and its step averages the gradients over the
+ranks (``TrainState.apply_gradients``) with BatchNorm over the global batch
+(``models/resnet.BatchNorm2d``); the losses are averaged over the ranks.
+Rank 0 alone logs, validates (the whole validation batch: eval mode has no
+cross-sample term), profiles and saves.
 
 The logs are the JAX trainer's (:mod:`ssde_tpu_torch.logging_utils`):
 ``Writers`` writes TensorBoard event files under
@@ -60,7 +71,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import checkpoint
+from .. import checkpoint, parallel
 from ..config import Options
 from ..data.kitti import KITTIDepthDataset, KITTIOdomDataset, KITTIRAWDataset
 from ..data.pipeline import Loader, to_device
@@ -104,17 +115,44 @@ def apply_matmul_precision(opt: Options) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def check_num_devices(opt: Options) -> None:
-    """``--num_devices`` (``ssde_tpu/train/trainer.py:76``, the JAX
-    trainer's data-parallel mesh): 0 (every device) and 1 are one card
-    here; a larger value raises rather than train on one card."""
+def train_mesh(opt: Options, device=None) -> List[torch.device]:
+    """``--num_devices``'s mesh (``ssde_tpu/train/trainer.py:76``,
+    ``parallel.make_mesh``'s rule): every visible card (0) or the first
+    ``--num_devices``, clamped to the largest count that divides
+    ``--batch_size``; under ``--no_cuda`` that many CPU ranks (0: one). A
+    trainer given its ``device`` runs on that one device, and then a
+    ``--num_devices`` above 1 is an error, not a one-device run."""
     if opt.num_devices < 0:
         raise ValueError(f"--num_devices {opt.num_devices}: 0 (all) or a device count")
-    if opt.num_devices > 1:
-        raise NotImplementedError(
-            f"--num_devices {opt.num_devices}: multi-GPU data parallelism is not ported yet "
-            "(ROADMAP.md Queue 1, item 12, multi-GPU); the port trains on one card "
-            "(--num_devices 0 or 1)")
+    if device is not None:
+        if opt.num_devices > 1:
+            raise ValueError(
+                f"--num_devices {opt.num_devices} with a trainer given one device "
+                f"({device}): train through the entry point's main(), which starts one "
+                "process per device")
+        return [run_device(opt, device)]
+    devices = parallel.cpu_devices(opt.num_devices) if run_device(opt).type == "cpu" else None
+    return parallel.make_mesh(opt.num_devices, devices, batch_size=opt.batch_size)
+
+
+def _train_rank(trainer_cls, opts: Options) -> None:
+    """One rank of :func:`train_main`: its trainer and its epochs."""
+    trainer_cls(opts).train()
+
+
+def train_main(trainer_cls, opts: Options):
+    """The entry points' training: on a mesh of one device the trainer
+    trains in this process and is returned; on more, one process per
+    device (``parallel.launch``) and None."""
+    mesh = train_mesh(opts)
+    if len(mesh) == 1:
+        trainer = trainer_cls(opts)
+        trainer.train()
+        return trainer
+    print(f"--num_devices {opts.num_devices}: one process per device of the mesh "
+          f"{parallel.describe_mesh(mesh, parallel.default_backend(mesh))}", flush=True)
+    parallel.launch(_train_rank, mesh, trainer_cls, opts)
+    return None
 
 
 class ProfileWindow:
@@ -192,7 +230,10 @@ class TrainerBase:
     """Data, models, optimizer and the epoch loop; the step itself is
     :attr:`step_fn`, :func:`ssde_tpu_torch.train.steps.train_step` here,
     and :attr:`loss_fn` the forward that :meth:`process_batch` runs.
-    Runs on the card unless ``device`` or ``--no_cuda`` asks for the CPU."""
+    Runs on the card unless ``device`` or ``--no_cuda`` asks for the CPU.
+    Built in a rank of ``parallel.launch`` it is that rank of the mesh
+    (:attr:`rank` of :attr:`world`); built elsewhere on a mesh of more than
+    one device it raises (:func:`train_main` starts the ranks)."""
 
     step_fn = staticmethod(train_step)
     loss_fn = staticmethod(mono_loss_fn)
@@ -200,6 +241,9 @@ class TrainerBase:
     # modules of the subclass that the default --models_to_load does not name
     # but a resume from its own weights_N/ restores (_models_to_load)
     own_modules: tuple = ()
+    # this process's place on the mesh (__init__ sets them); rank 0 leads:
+    # it logs, validates, profiles and saves
+    rank, world, lead = 0, 1, True
 
     def __init__(self, options: Options, device=None, seed: int = 0):
         self.opt = options
@@ -208,24 +252,40 @@ class TrainerBase:
         assert self.opt.width % 32 == 0, "'width' must be a multiple of 32"
         assert self.opt.frame_ids[0] == 0, "frame_ids must start with 0"
         self.check_supported(self.opt)
-        check_num_devices(self.opt)
         apply_matmul_precision(self.opt)
-        self.device = run_device(self.opt, device)
-        self.profile = ProfileWindow(self.opt.profile_steps,
+        self.rank, self.world = parallel.rank(), parallel.world_size()
+        if parallel.in_group():
+            self.mesh = parallel.current_mesh()
+            self.device = run_device(self.opt, self.mesh[self.rank])
+        else:
+            self.mesh = train_mesh(self.opt, device)
+            if len(self.mesh) > 1:
+                raise RuntimeError(
+                    f"--num_devices {self.opt.num_devices}: the mesh "
+                    f"{parallel.describe_mesh(self.mesh, None)} trains one process per "
+                    "device: run the entry point's main() (train.trainer.train_main)")
+            self.device = run_device(self.opt, device)
+        self.lead = self.rank == 0
+        self.profile = ProfileWindow(self.opt.profile_steps if self.lead else 0,
                                      os.path.join(self.log_path, "profile"), self.device)
         self.step = 0
         self.epoch = 0
         self.seed = seed
         self._build_data()
         self._build_models_and_state()
-        self.writers = Writers(self.log_path)
+        self.writers = Writers(self.log_path, ("train", "val") if self.lead else ())
         self.num_total_steps = len(self.train_loader) * self.opt.num_epochs
         self.time_logger = TimeLogger(self.num_total_steps, self.opt.batch_size)
-        save_opts(self.log_path, self.opt)
-        print(f"Training model named: {self.opt.model_name}")
         print(f"Device: {self.device}"
               + (f" ({torch.cuda.get_device_name(self.device)})"
-                 if self.device.type == "cuda" else ""))
+                 if self.device.type == "cuda" else "")
+              + (f", rank {self.rank} of {self.world}" if parallel.in_group() else ""),
+              flush=True)
+        if not self.lead:
+            return
+        save_opts(self.log_path, self.opt)
+        print(f"Training model named: {self.opt.model_name}")
+        print(f"Training is using mesh: {parallel.describe_mesh(self.mesh, parallel.backend())}")
         print(f"TensorBoard event files under {self.log_path}/{{train,val}}"
               if self.writers.writers else
               "TensorBoard is not installed: the writers are a no-op, as in the JAX package")
@@ -274,7 +334,8 @@ class TrainerBase:
     def _make_loaders(self):
         opt = self.opt
         self.train_loader = Loader(self.train_dataset, opt.batch_size, shuffle=True,
-                                   drop_last=True, num_workers=opt.num_workers)
+                                   drop_last=True, num_workers=opt.num_workers,
+                                   shard=(self.rank, self.world))
         self.val_loader = Loader(self.val_dataset, opt.batch_size, shuffle=False,
                                  drop_last=True, num_workers=opt.num_workers)
         self._val_iter = None
@@ -292,7 +353,8 @@ class TrainerBase:
         """Seeded models; the monodepth2 warm start where it applies
         (``ssde_tpu/train/trainer.py:160-170``: ``--mono_pretrained``, no
         folder to load, ``models/mono_640x192`` present: every module file
-        there that the trainer has); Adam; then ``--load_weights_folder``."""
+        there that the trainer has); Adam; then ``--load_weights_folder``;
+        then, on a mesh, rank 0's parameters and buffers on every rank."""
         opt = self.opt
         self.models = self._build_models()
         if opt.mono_pretrained and opt.load_weights_folder is None \
@@ -302,6 +364,7 @@ class TrainerBase:
                                 self._scheduler_step_size(), max(1, len(self.train_loader)))
         if opt.load_weights_folder is not None:
             self.load_model()
+        parallel.replicate_(self.models.modules())
 
     def _warm_start(self) -> None:
         """``--mono_pretrained``: the module files of ``models/mono_640x192``
@@ -313,33 +376,45 @@ class TrainerBase:
     # ------------------------------------------------------------ train
     def train(self):
         """``num_epochs`` epochs, a checkpoint after every
-        ``--save_frequency``-th; a ``--profile_steps`` window still open at
-        the end is closed and written, and the TensorBoard writers closed."""
+        ``--save_frequency``-th (rank 0's); a ``--profile_steps`` window still
+        open at the end is closed and written, and the TensorBoard writers
+        closed."""
         try:
             for self.epoch in range(self.opt.num_epochs):
                 self.run_epoch()
-                if (self.epoch + 1) % self.opt.save_frequency == 0:
+                if (self.epoch + 1) % self.opt.save_frequency == 0 and self.lead:
                     self.save_model()
         finally:
             self.profile.close()
             self.writers.close()
 
+    def _train_batches(self):
+        """The train loader's host batches without ``depth_gt``."""
+        for host in self.train_loader:
+            yield {k: v for k, v in host.items() if k != "depth_gt"}
+
     def run_epoch(self) -> List[Dict[str, torch.Tensor]]:
-        """One pass over the training set; the losses of every step, on the
-        device (reading them back waits for the steps). At each logging
-        point the console line, the step's losses to the ``train`` writer,
-        and :meth:`val`."""
-        print(f"Training epoch {self.epoch}", flush=True)
+        """One pass over the training set, the batches handed to the device
+        through ``parallel.device_prefetch`` (``ssde_tpu/train/trainer.py
+        :219-221``); the losses of every step, on the device (reading them
+        back waits for the steps), averaged over the ranks on a mesh: the
+        global batch's. At each logging point rank 0 prints the console
+        line, writes the step's losses to the ``train`` writer and runs
+        :meth:`val`."""
+        if self.lead:
+            print(f"Training epoch {self.epoch}", flush=True)
         self.train_dataset.set_epoch(self.epoch)
         gen = torch.Generator(self.device).manual_seed(self.epoch)
         history = []
-        for batch_idx, host in enumerate(self.train_loader):
+        for batch_idx, batch in enumerate(
+                parallel.device_prefetch(self._train_batches(), self.device)):
             before = time.time()
             self.profile.at(self.step)
-            losses = self.step_fn(self.models, self.state, device_batch(host, self.device), gen)
+            losses = self.step_fn(self.models, self.state, device_batch(batch, self.device), gen)
+            parallel.all_reduce_mean_(list(losses.values()))
             history.append(losses)
             early_phase = batch_idx % self.opt.log_frequency == 0 and self.step < 2000
-            if early_phase or self.step % 2000 == 0:
+            if self.lead and (early_phase or self.step % 2000 == 0):
                 loss = float(losses["loss"])  # waits for the step
                 self.time_logger.log(self.step, time.time() - before, loss)
                 self.writers.scalars("train", self.step,

@@ -14,7 +14,9 @@ data are T-frame windows of the ``--split``'s
 ``--synthetic_data``. Checkpoints, loading and the monodepth2 warm start
 are the base trainer's, with ``gru.pth`` (and ``head.pth`` for v4, v6 and
 v7) beside the mono modules; the depth metrics take the (B, T) ground
-truth B-major.
+truth B-major. On a data-parallel mesh the ranks split the sequences (B),
+never the frames (T), and ``--gru_remat auto`` decides by the global B*T,
+as the JAX step's traced shapes are global.
 """
 
 from __future__ import annotations
@@ -89,8 +91,9 @@ class GRUTrainer(TrainerBase):
         return self.opt.scheduler_step_size if self.opt.gru_lr_decay else 0
 
     def run_epoch(self):
-        if self.epoch >= self.opt.h_s_epoch and not self._h0_frozen:
-            print(f"---> Freezing learned hidden states at epoch {self.epoch}")
+        if self.epoch >= self.opt.h_s_epoch and not self._h0_frozen:  # on every rank
+            if self.lead:
+                print(f"---> Freezing learned hidden states at epoch {self.epoch}")
             self.state.freeze(self.models.h0_parameters())
             self._h0_frozen = True
         return super().run_epoch()

@@ -330,10 +330,27 @@ def test_profile_window_left_open_is_closed_when_training_ends(tmp_path):
 
 
 @pytest.mark.parametrize("n", [2, 8])
-def test_more_than_one_device_raises(tmp_path, n):
-    with pytest.raises(NotImplementedError, match="num_devices"):
-        train_dpt.build_trainer(train_dpt.MonodepthOptions().parse(
-            _synthetic_argv(tmp_path, "--num_devices", str(n))), "cpu")
+def test_more_than_one_device_trains(tmp_path, n, capfd):
+    """--no_cuda --num_devices 2 trains the epoch through train_dpt.main()
+    over 2 gloo ranks; 8 with --batch_size 2 clamps to 2 by the JAX rule.
+    The mesh is printed, each rank names itself, and rank 0 alone logs and
+    writes weights_0/ (--save_frequency 1)."""
+    argv = _synthetic_argv(tmp_path, "--no_cuda", "--num_devices", str(n), "--save_frequency",
+                           "1")
+    assert train_dpt.main(argv) is None  # the trainers live in the ranks
+    out = capfd.readouterr().out
+    assert "Training is using mesh: data=2 [cpu, cpu] over gloo" in out
+    assert "Device: cpu, rank 0 of 2" in out and "Device: cpu, rank 1 of 2" in out
+    assert out.count("Training model named") == 1 and out.count("saved model to") == 1
+    steps = [ln for ln in out.splitlines() if ln.startswith("step ")]
+    assert len(steps) == 1 and np.isfinite(float(steps[0].split("loss:")[1].split("|")[0]))
+    assert sorted(os.listdir(tmp_path / "mdp" / "models")) == ["opt.json", "weights_0"]
+    sd = torch.load(tmp_path / "mdp" / "models" / "weights_0" / "encoder.pth", weights_only=True)
+    fresh = build_mono_models(Options(height=32, width=64, batch_size=2), "cpu",
+                              torch.Generator().manual_seed(0)).encoder.state_dict()
+    assert any(not torch.equal(sd[k], v) for k, v in fresh.items() if k.endswith("weight"))
+    adam = torch.load(tmp_path / "mdp" / "models" / "weights_0" / "adam.pth", weights_only=True)
+    assert {int(s["step"]) for s in adam["state"].values()} == {8}
 
 
 def test_one_device_trains(tmp_path):
