@@ -243,6 +243,23 @@ Phases, each fatal on failure:
              tensor's max), the ranks bit-identical, each rank's launches,
              step and gradient all-reduce ms and peak memory; (c) the mono
              step over NCCL on two cards where the machine has two
+ 29. mp          the model axis (parallel.make_mesh_2d, model_sharded_params:
+             each rank computes its slice of every conv's output channels,
+             then all-gathers it): (a) #1 (forward, dx) and #2 at the slice
+             shapes of v10's kernel convs at scales 0-1 at m = 2 (B=2),
+             float32 and bf16, against their plain versions, and each
+             slice's forward against the same channels of the whole conv;
+             (b) a (1, 2) mesh of two gloo ranks on cuda:0: one mono step at
+             B=4 and one GRU v10 step at B=2, T=3 (640x192, phase 28 (b)'s
+             precision and pins) against the one-process step after
+             unshard_params (losses 1e-4 relative, gradients, BatchNorm
+             statistics and parameters 1e-3 of each tensor's max), every
+             rank the same; (c) a (2, 2) mesh of four gloo ranks on cuda:0:
+             the mono step at B=4, held the same way; each rank's step ms,
+             ms, calls and bytes of its gathers and model-group reductions,
+             peak memory, the bytes of its parameters and Adam moments, its
+             launches; (d) (b)'s mono step over NCCL on two cards where the
+             machine has two
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, each with its launches on the main path (for
@@ -269,7 +286,10 @@ given alone as ``bench_launches``; phase 27's, the trainers resumed from
 .ckpt folders and the GRU evaluator on one, is added to the same kernels
 and given alone as ``native_launches``; phase 28's, every data-parallel
 rank's steps, is added to the same kernels and given as ``dp_launches``,
-and by run and rank as ``dp_launches_per_rank``), its time, its plain
+and by run and rank as ``dp_launches_per_rank``; phase 29's, every
+model-parallel rank's steps, the same way as ``mp_launches`` and
+``mp_launches_per_rank``, with #1/#2's worst errors at the slice shapes
+under ``mp_*``), its time, its plain
 version's (conv3x3_fwd: float32 serving at B=1, and under bf16_b8_* and
 f32_b8_* its bf16 and float32 bodies at a B=8 frame-step; conv3x3_dx and
 conv3x3_dw: bf16, and float32 under f32_b8_*; attend3_fwd and attend3_bwd:
@@ -670,6 +690,17 @@ def main() -> None:
             kernels[name]["dp_launches"] = n
             kernels[name]["dp_launches_per_rank"] = {
                 run: [counts[name] for counts in ranks] for run, ranks in dp_per_rank.items()}
+    # phase 29's main path (the model-parallel ranks' steps) adds every rank's
+    # launches; each rank's are given under mp_launches_per_rank
+    mp_count, mp_per_rank, mp_errs = model_parallel(dev, card)
+    for name, n in mp_count.items():
+        if n:
+            kernels[name]["launches"] += n
+            kernels[name]["mp_launches"] = n
+            kernels[name]["mp_launches_per_rank"] = {
+                run: [counts[name] for counts in ranks] for run, ranks in mp_per_rank.items()}
+    for (name, dt), err in mp_errs.items():
+        kernels[name][f"mp_{'f32' if dt == f32 else 'bf16'}_max_abs_err"] = err
     print(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s [{card}]")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -5506,16 +5537,38 @@ def _dp_one_step(models, state, batch, preprocess, loss_fn, dev, select=None):
     return {k: float(v) for k, v in losses.items()}, (time.perf_counter() - t0) * 1e3
 
 
-def dp_held_steps(pins, dev=None, sizes=DP_SIZES):
-    """(b) and (c): one mono step and one GRU v10 step at ``sizes`` of this
-    process's rows of seeded batches (all of them outside a group) on
-    ``dev`` (a rank: its own), by :func:`_dp_one_step`; for each the
-    losses, the state with the gradients, the step's ms, the gradient
-    all-reduce's ms (the same tensors once more, outside the step), the
-    peak memory and the kernels' launches. The GRU step's block relu masks
-    and automask argmin are written to the file ``pins`` outside a group,
-    and a rank replays its rows of them."""
+def _model_axis_ms(trace):
+    """The model axis' gather and reduction ms of a ``torch.profiler``
+    trace: the host spans of ``parallel.tensor``'s ``model_axis:`` ranges,
+    each from the call to the collective's end (the wait for the other ranks
+    and for the device's queued work included); 0 without a trace."""
+    ms = {"gather_ms": 0.0, "reduction_ms": 0.0}
+    for e in trace.key_averages() if trace is not None else ():
+        if e.key.startswith("model_axis:"):
+            ms[e.key.split(":")[1] + "_ms"] += e.cpu_time_total / 1e3
+    return ms
+
+
+def dp_held_steps(pins, dev=None, sizes=DP_SIZES, names=("mono", "gru")):
+    """(b) and (c), and phase 29's steps: one mono step and one GRU v10 step
+    (those of ``names``) at ``sizes`` of this process's rows of seeded
+    batches (all of them outside a group; on a (data, model) mesh the rows
+    of its data rank) on ``dev`` (a rank: its own), by :func:`_dp_one_step`;
+    for each the losses, the state with the gradients, the step's ms, the
+    gradient all-reduce's ms (the same tensors once more, outside the step,
+    over the data group), the peak memory, the kernels' launches and the
+    bytes of the parameters and Adam moments the rank holds. On a mesh with
+    a model axis the networks are sharded over it after ``replicate_``, the
+    model axis' collectives counted (``parallel.tensor.STATS``) and timed
+    (:func:`_model_axis_ms`: the step runs under ``torch.profiler``, whose
+    host cost its ms then include), and the state is taken after
+    ``unshard_params``. The GRU step's block relu masks and automask argmin
+    are written to the file ``pins`` outside a group, and a rank replays its
+    rows of them."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssde_tpu_torch.parallel import tensor as model_axis
 
     import ssde_tpu_torch.train.steps as steps
     import ssde_tpu_torch.train.steps_gru as steps_gru
@@ -5529,7 +5582,8 @@ def dp_held_steps(pins, dev=None, sizes=DP_SIZES):
     torch.backends.cuda.matmul.allow_tf32 = False
     counters = _gru_counters()
     dev = _dp_device(dev)
-    r, n = parallel.rank(), parallel.world_size()
+    r, n = parallel.data_rank(), parallel.data_world()
+    sharded = parallel.model_world() > 1
     h, w = sizes["h"], sizes["w"]
     mono = Options(height=h, width=w, batch_size=sizes["mono_b"], compute_dtype="float32")
     gru = Options(height=h, width=w, batch_size=sizes["gru_b"], len_sequence=sizes["gru_t"],
@@ -5567,35 +5621,53 @@ def dp_held_steps(pins, dev=None, sizes=DP_SIZES):
     out = {}
     nondeterministic = []
     for name, (build, batch, preprocess, loss_fn, select) in runs.items():
+        if name not in names:
+            continue
         models = build()
         state = TrainState(models.parameters(), 1e-4, 15, 1)
         parallel.replicate_(models.modules())
+        if sharded:
+            parallel.model_sharded_params(models.modules(), parallel.make_mesh_2d(
+                *parallel.mesh_shape(), parallel.current_mesh()))
         if dev.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
         for fn in counters.values():
             fn.launches = 0
-        with _deterministic(nondeterministic):
+        model_axis.reset_stats()
+        trace = profile(activities=[ProfilerActivity.CPU]) if sharded else None
+        with _deterministic(nondeterministic), trace or contextlib.nullcontext():
             losses, ms = _dp_one_step(models, state,
                                       to_device(parallel.shard_batch(batch, r, n), dev),
                                       preprocess, loss_fn, dev, select)
         launched = {k: fn.launches for k, fn in counters.items()}
-        grads = [p.grad.clone() for p in state.optimizer.param_groups[0]["params"]
-                 if p.grad is not None]
+        params = state.optimizer.param_groups[0]["params"]
+        held = {"param_bytes": sum(p.numel() * p.element_size() for p in params),
+                "moment_bytes": sum(st[k].numel() * st[k].element_size() for p in params
+                                    for st in [state.optimizer.state.get(p, {})]
+                                    for k in ("exp_avg", "exp_avg_sq") if k in st),
+                "model_axis": {**model_axis.STATS, **_model_axis_ms(trace)}}
+        if sharded:
+            parallel.unshard_params(models.modules(), state.optimizer)
+        grads = [p.grad.clone() for p in params if p.grad is not None]
         _dp_sync(dev)
         t0 = time.perf_counter()
-        parallel.all_reduce_mean_(grads)
+        if n > 1:
+            parallel.all_reduce_mean_(grads, parallel.data_group())
         _dp_sync(dev)
         out[name] = {**_dp_state(models, state, grads=True), "losses": losses, "ms": ms,
                      "all_reduce_ms": (time.perf_counter() - t0) * 1e3,
                      "grad_mib": sum(g.numel() * g.element_size() for g in grads) / 2**20,
                      "peak_gib": _dp_peak_gib(dev), "launches": launched,
-                     "nondeterministic": sorted(set(nondeterministic))}
-        del models, state, grads
+                     "nondeterministic": sorted(set(nondeterministic)), **held}
+        del models, state, grads, params
+        if dev.type == "cuda":  # give the card back to the ranks that run next
+            torch.cuda.empty_cache()
     if not parallel.in_group():
         torch.save({"relu": pin.masks, "argmin": selected}, pins)
-    out["gru"].update(relu_flips=pin.flips, automask_switches=sum(switches),
-                      relu_values=sum(m.numel() for m in pin.masks))
+    if "gru" in out:
+        out["gru"].update(relu_flips=pin.flips, automask_switches=sum(switches),
+                          relu_values=sum(m.numel() for m in pin.masks))
     return out
 
 
@@ -5730,6 +5802,204 @@ def data_parallel(dev, card, sizes=DP_SIZES):
           f"(every rank) {_nonzero(total)} [{card}]")
     return total, per_rank
 
+
+
+# phase 29: the model axis (ssde_tpu_torch.parallel.make_mesh_2d,
+# model_sharded_params; parallel/tensor.py's column-parallel layers). The
+# card machine has one card and NCCL refuses two ranks on one, so the
+# ranks share cuda:0 over gloo, as phase 28 (b)'s do; gloo stages every
+# gather and reduction through the host, so the batches are cut (mono B=4,
+# GRU B=2 at T=3), never the width or the depth. Held as phase 28 (b).
+MP_SIZES = dict(h=H, w=W, mono_b=4, gru_b=2, gru_t=3)
+MP_MODEL = 2  # the model axis of the (1, 2) and (2, 2) meshes
+
+
+def mp_slice_convs(version=VERSION, m=MP_MODEL):
+    """The kernel convs of one frame-step of ``version``'s block at scales
+    0-1 as a rank of a model axis of size ``m`` runs them: (name, Cin, local
+    Cout, whole Cout, h, w, pad, act, bias); a conv whose Cout does not
+    divide by m (the 1-channel heads) stays whole."""
+    out = []
+    for name, cin, cout, h, w, pad, act, has_b in slice_convs(version, H, W):
+        if name.startswith(("s0.", "s1.")):
+            local = cout // m if cout % m == 0 else cout
+            out.append((name, cin, local, cout, h, w, pad, act, has_b))
+    return out
+
+
+def mp_kernels(dev, card):
+    """Phase 29 (a): #1 (forward and dx) and #2 at the slice shapes a rank
+    of the (1, 2) mesh runs in the GRU v10 step (B=2 a frame-step), float32
+    and bf16: the forward against the plain version (phase 2's bounds), the
+    backward by phase 10's method and bounds, and each slice's forward
+    against the same output channels of the whole conv (bit-identical or
+    not, and how far). Returns the worst absolute errors by (kernel,
+    dtype)."""
+    import torch
+
+    from ssde_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_reference, fwd_tiles
+
+    torch.backends.cudnn.allow_tf32 = False
+    B = MP_SIZES["gru_b"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    worst_abs, worst = {}, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    same = {}
+    t0 = time.perf_counter()
+    print(f"mp (a): #1/#2 at the model axis' slice shapes (m={MP_MODEL}) of {VERSION}'s kernel "
+          f"convs at scales 0-1, B={B}, {H}x{W} [{card}]")
+    for name, cin, cout, whole, h, w, pad, act, has_b in mp_slice_convs():
+        x = torch.randn(B, cin, h, w, device=dev, generator=gen)
+        wt = torch.randn(whole, cin, 3, 3, device=dev, generator=gen) / (3 * cin ** 0.5)
+        bt = torch.randn(whole, device=dev, generator=gen) * 0.1 if has_b else None
+        g = torch.randn(B, cout, h, w, device=dev, generator=gen)
+        rows = slice(whole - cout, whole)  # the last rank's slice
+        ws, bs = wt[rows].contiguous(), None if bt is None else bt[rows].contiguous()
+        line = []
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, wd, bd = (None if t is None else t.to(dtype) for t in (x, ws, bs))
+            with torch.no_grad():
+                got = conv3x3(xd, wd, bd, pad, act)
+                plain = conv3x3_reference(xd.float(), wd.float(),
+                                          None if bd is None else bd.float(), pad, act)
+                full = conv3x3(xd, wt.to(dtype), None if bt is None else bt.to(dtype), pad,
+                               act)[:, rows]
+            torch.cuda.synchronize()
+            f_rel = _rel(got.float(), plain)
+            key = ("conv3x3_fwd", dtype)
+            worst_abs[key] = max(worst_abs.get(key, 0.0), (got.float() - plain).abs().max().item())
+            identical = torch.equal(got, full)
+            same[dtype] = same.get(dtype, True) and identical
+            grads, want, _ = _conv_bwd(x, ws, bs, g, pad, act, dtype)
+            rels = [("fwd", f_rel)]
+            for kname, a, r in zip(("dx", "dw", "db"), grads, want):
+                if r is None:
+                    continue
+                rels.append((kname, _rel(a.to(r.dtype), r)))
+                if kname != "db":
+                    key = ("conv3x3_dx" if kname == "dx" else "conv3x3_dw", dtype)
+                    worst_abs[key] = max(worst_abs.get(key, 0.0),
+                                         (a.to(r.dtype) - r).abs().max().item())
+            tol_f = TOL_F32 if dtype == torch.float32 else TOL_BF16
+            tol_b = TOL_BWD_F32 if dtype == torch.float32 else TOL_BWD_BF16
+            worst[dtype] = max([worst[dtype]] + [r for _, r in rels])
+            line.append(f"{'f32' if dtype == torch.float32 else 'bf16'} "
+                        + " ".join(f"{n} {r:.2e}" for n, r in rels)
+                        + f" (tiles {fwd_tiles(cin, cout, dtype)} against the whole conv's "
+                        f"{fwd_tiles(cin, whole, dtype)}; slice == whole's channels: {identical}"
+                        + ("" if identical else f", {_rel(got.float(), full.float()):.2e}") + ")")
+            if f_rel > tol_f or max(r for n, r in rels if n != "fwd") > tol_b:
+                fail(f"mp (a): {name} {cin}->{cout} of {whole} {dtype}: {rels}")
+        print(f"  {name} {cin}->{cout} (of {whole}) {h}x{w} {pad} {act}: " + "; ".join(line))
+    print(f"mp (a): ok in {time.perf_counter() - t0:.1f} s; worst of max float32 "
+          f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}; every slice's forward "
+          f"bit-identical to the whole conv's channels: float32 {same[torch.float32]}, bf16 "
+          f"{same[torch.bfloat16]}")
+    torch.cuda.empty_cache()
+    return worst_abs
+
+
+def _mp_report(label, ranks, want, names):
+    """Print and hold a model-parallel run: every rank's state the same
+    after unshard_params, rank 0 against the one-process ``want``; each
+    rank's step ms, model-axis collectives, peak memory and held bytes."""
+    ok = True
+    for name in names:
+        same = all(_dp_identical(ranks[0][name], x[name]) for x in ranks[1:])
+        held = _dp_hold(f"{label} {name} rank 0 vs one process", ranks[0][name], want[name])
+        ok = ok and same and held
+        one = want[name]["param_bytes"] + want[name]["moment_bytes"]
+        print(f"  {label} {name}: ranks the same after unshard_params {same}; one process "
+              f"{want[name]['ms']:.1f} ms, peak {want[name]['peak_gib']:.2f} GiB, parameters "
+              f"and Adam moments {one / 2**20:.1f} MiB")
+        for i, x in enumerate(ranks):
+            st = x[name]["model_axis"]
+            mine = x[name]["param_bytes"] + x[name]["moment_bytes"]
+            print(f"    rank {i}: step {x[name]['ms']:.1f} ms (under torch.profiler); gathers "
+                  f"{st['gathers']} "
+                  f"({st['gather_bytes'] / 2**20:.1f} MiB sent) {st['gather_ms']:.1f} ms; "
+                  f"model-group reductions {st['reductions']} "
+                  f"({st['reduction_bytes'] / 2**20:.1f} MiB) {st['reduction_ms']:.1f} ms; "
+                  f"gradient mean over the data group {x[name]['all_reduce_ms']:.1f} ms; peak "
+                  f"{x[name]['peak_gib']:.2f} GiB; parameters {x[name]['param_bytes'] / 2**20:.1f}"
+                  f" MiB and Adam moments {x[name]['moment_bytes'] / 2**20:.1f} MiB "
+                  f"({mine / one:.3f} of one process's); launches "
+                  f"{_nonzero(x[name]['launches'])}")
+    return ok
+
+
+def model_parallel(dev, card, sizes=MP_SIZES):
+    """Phase 29: (a) the kernels at the slice shapes (on a card), (b) a (1, 2)
+    mesh of two gloo ranks on ``dev``, (c) a (2, 2) mesh of four, (d) NCCL
+    over two cards where present; returns the ranks' kernel launches summed,
+    per run and rank, and (a)'s worst errors. On the CPU (a rehearsal at
+    small ``sizes``) (a) and (d) are skipped."""
+    import torch
+
+    from ssde_tpu_torch import parallel
+
+    phase0 = time.perf_counter()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+    errs = mp_kernels(dev, card) if cuda else {}
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    folder = tempfile.mkdtemp(prefix="ssde_mp_pins_")
+    pins = os.path.join(folder, "pins.pt")
+    runs = {"b": ((1, MP_MODEL), ("mono", "gru")), "c": ((2, MP_MODEL), ("mono",))}
+    got, seconds = {}, {}
+    try:
+        want = dp_held_steps(pins, dev, sizes)
+        for run, (shape, names) in runs.items():
+            t0 = time.perf_counter()
+            mesh = parallel.make_mesh_2d(*shape, [dev] * (shape[0] * shape[1]))
+            got[run] = parallel.launch(dp_held_steps, mesh, pins, None, sizes, names,
+                                       backend="gloo")
+            seconds[run] = time.perf_counter() - t0
+        if cuda and torch.cuda.device_count() >= 2:
+            mesh = parallel.make_mesh_2d(1, MP_MODEL, [torch.device("cuda", i) for i in (0, 1)])
+            got["d"] = parallel.launch(dp_held_steps, mesh, pins, None, sizes, ("mono",))
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    print(f"mp: the one-process steps (mono B={sizes['mono_b']}, GRU {DP_GRU_VERSION} "
+          f"B={sizes['gru_b']}, T={sizes['gru_t']}, {sizes['h']}x{sizes['w']}; networks float64, "
+          f"the GRU block, geometry, warp and loss float32), the ranks' after unshard_params "
+          f"[{card}]:")
+    ok, per_rank = True, {}
+    for run, (shape, names) in runs.items():
+        print(f"mp ({run}) a {shape} mesh of {shape[0] * shape[1]} gloo ranks on {dev} "
+              f"(launch and steps {seconds[run]:.1f} s):")
+        ok = _mp_report(f"({run})", got[run], want, names) and ok
+        for name in names:
+            per_rank[f"{run}_{name}"] = [x[name]["launches"] for x in got[run]]
+    if "gru" in want:
+        print("  the GRU step takes the one-process run's relu masks of the block "
+              f"({want['gru']['relu_values']} values) and automask argmin: its own differ at "
+              + ", ".join(f"rank {i} {x['gru']['relu_flips']} and {x['gru']['automask_switches']}"
+                          for i, x in enumerate(got["b"])))
+    if "d" in got:
+        print("mp (d) NCCL on cuda:0 and cuda:1, a (1, 2) mesh:")
+        ok = _mp_report("(d)", got["d"], want, ("mono",)) and ok
+        per_rank["d_mono"] = [x["mono"]["launches"] for x in got["d"]]
+    else:
+        print(f"mp (d) not run: the machine has {torch.cuda.device_count()} card"
+              + (" (the model axis over NCCL across cards is not measured here)" if cuda else ""))
+    if not ok:
+        fail("mp: a model-parallel run disagrees with one process or its ranks differ")
+    want_launch = {"mono": {"warp_family_fwd": 2, "warp_family_bwd": 2,
+                            "photometric_fwd": 1, "photometric_bwd": 1},
+                   "gru": _gru_step_launches(DP_GRU_VERSION, sizes["gru_t"])}
+    total = {}
+    for run, launches in per_rank.items():
+        for counts in launches:
+            want_counts = {k: want_launch[run.split("_")[1]].get(k, 0) if cuda else 0
+                           for k in counts}
+            if counts != want_counts:
+                fail(f"mp ({run}): a rank launched {counts}, expected {want_counts}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    print(f"mp: phase 29 took {time.perf_counter() - phase0:.1f} s; launches of its main path "
+          f"(every rank) {_nonzero(total)} [{card}]")
+    return total, per_rank, errs
 
 if __name__ == "__main__":
     main()

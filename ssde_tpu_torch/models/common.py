@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv3x3 import conv3x3, conv3x3_reference
+from ..parallel.tensor import column_parallel
 
 
 def sample_(t: torch.Tensor, generator: torch.Generator, fill) -> None:
@@ -62,12 +63,15 @@ def kernel_dtype(x: torch.Tensor) -> torch.dtype:
 
 def conv(x, layer: nn.Conv2d, pad: str, act: str = "none", kernel: bool = False):
     """3x3 SAME conv of ``x`` with ``layer``'s weights, plain or kernel (in
-    :func:`kernel_dtype`)."""
+    :func:`kernel_dtype`); column-parallel where ``layer`` is sharded over
+    the model axis (``parallel.tensor``: the kernel then computes the
+    rank's output channels alone)."""
     if not kernel:
-        return conv3x3_reference(x, layer.weight, layer.bias, pad, act)
+        return column_parallel(
+            x, layer, lambda t: conv3x3_reference(t, layer.weight, layer.bias, pad, act))
     dt = kernel_dtype(x)
     b = None if layer.bias is None else layer.bias.to(dt)
-    return conv3x3(x.to(dt), layer.weight.to(dt), b, pad, act)
+    return column_parallel(x.to(dt), layer, lambda t: conv3x3(t, layer.weight.to(dt), b, pad, act))
 
 
 class Conv3x3(nn.Module):

@@ -28,6 +28,7 @@ import torch.nn as nn
 
 from ..ops.conv3x3 import conv3x3, conv3x3_reference
 from ..ops.image import pixel_shuffle
+from ..parallel.tensor import copy_to_model, gather_from_model, is_sharded
 from .common import Conv3x3, kernel_dtype
 from .fusion import GRUFusionBlock, GRUFusionBlock_v2
 
@@ -91,6 +92,16 @@ def _convs(x, kernel: bool, *operands):
     return tuple(None if t is None else t.to(dt).contiguous() for t in operands)
 
 
+def _copy(t: torch.Tensor, sharded: bool) -> torch.Tensor:
+    """``t`` as the input of a conv that is column-parallel where ``sharded``."""
+    return copy_to_model(t) if sharded else t
+
+
+def _gather(t: torch.Tensor, sharded: bool) -> torch.Tensor:
+    """The whole output of a conv from this rank's slice ``t`` where ``sharded``."""
+    return gather_from_model(t) if sharded else t
+
+
 class ConvGRUCell(nn.Module):
     """Conv gates (reset/update) + tanh candidate (reference rnn.py:101-140).
 
@@ -118,14 +129,23 @@ class ConvGRUCell(nn.Module):
         return kx, bx, wg[:, cx:].contiguous(), wc[:, cx:].contiguous()
 
     def forward(self, x, h, kernel: bool = False):
+        """On the model axis ``conv_gates`` and ``conv_can`` are sharded
+        together (``parallel.mesh.model_sharded_params``) and run
+        column-parallel: the rank computes its slices of the gates and of
+        the candidate, each gathered into its own place (the x conv's output
+        is [gates slice, candidate slice], which one gather would
+        interleave)."""
         hid = self.hidden_dim
         fn = conv3x3 if kernel else conv3x3_reference
+        s = is_sharded(self.conv_gates)
         x, h, kx, bx, kgh, kch = _convs(x, kernel, x, h, *self.split_weights())
-        xs = fn(x, kx, bx, "zero", "none")
-        gates = xs[:, :2 * hid] + fn(h, kgh, None, "zero", "none")
+        ng = kgh.shape[0]  # the gate channels this rank computes
+        xs = fn(_copy(x, s), kx, bx, "zero", "none")
+        gates = _gather(xs[:, :ng] + fn(_copy(h, s), kgh, None, "zero", "none"), s)
         reset = torch.sigmoid(gates[:, :hid])
         update = torch.sigmoid(gates[:, hid:])
-        cand = torch.tanh(xs[:, 2 * hid:] + fn(reset * h, kch, None, "zero", "none"))
+        can = xs[:, ng:] + fn(_copy(reset * h, s), kch, None, "zero", "none")
+        cand = torch.tanh(_gather(can, s))
         return (1.0 - update) * h + update * cand
 
 
@@ -148,7 +168,9 @@ class ConvLSTMCell(nn.Module):
         w = self.conv.weight
         x, h, kx, bx, kh = _convs(x, kernel, x, h, w[:, :cx].contiguous(), self.conv.bias,
                                   w[:, cx:].contiguous())
-        i, f, o, g = (fn(x, kx, bx, "zero", "none") + fn(h, kh, None, "zero", "none")).chunk(4, 1)
+        s = is_sharded(self.conv)  # the gates' slice, gathered before the chunks
+        gates = fn(_copy(x, s), kx, bx, "zero", "none") + fn(_copy(h, s), kh, None, "zero", "none")
+        i, f, o, g = _gather(gates, s).chunk(4, 1)
         c_next = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         return torch.sigmoid(o) * torch.tanh(c_next), c_next
 

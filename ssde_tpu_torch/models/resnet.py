@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel.dist import all_reduce_sum, world_size
+from ..parallel.dist import all_reduce_sum, data_group, data_world
 from .common import sample_
 
 _STAGES = {
@@ -47,10 +47,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     (``torch.utils.checkpoint``) runs again in the backward must not move the
     statistics a second time.
 
-    Inside a process group of more than one rank (data parallelism,
+    On a mesh whose data axis has more than one rank (data parallelism,
     :mod:`ssde_tpu_torch.parallel`) training mode normalises with the
     statistics of the global batch, as the JAX step's BatchNorm over a
-    sharded batch axis does (:meth:`_forward_global`).
+    sharded batch axis does (:meth:`_forward_global`), summed over the
+    rank's data group. (The rest of its model group holds the same rows: a
+    sum over the world would count each row, and each row's loss gradient,
+    m times, which cancel, at m times the bytes.)
     """
 
     def __init__(self, num_features: int, device=None):
@@ -60,7 +63,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        if world_size() > 1:
+        if data_world() > 1:
             return self._forward_global(x)
         if self.stats_frozen:  # the same kernel on copies of the statistics
             return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
@@ -89,11 +92,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         same modules."""
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         c = x.shape[1]
+        group = data_group()
         sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)),
-                                         xf.new_full((1,), x.numel() // c)]))
+                                         xf.new_full((1,), x.numel() // c)]), group)
         mean = sums[:c] / sums[c]
         centred = xf - mean.view(1, c, 1, 1)
-        var = all_reduce_sum((centred * centred).sum((0, 2, 3))) / sums[c]
+        var = all_reduce_sum((centred * centred).sum((0, 2, 3)), group) / sums[c]
         scale = torch.rsqrt(var + self.eps) * self.weight
         out = centred * scale.view(1, c, 1, 1) + self.bias.view(1, c, 1, 1)
         if not self.stats_frozen:

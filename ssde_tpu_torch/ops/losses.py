@@ -13,7 +13,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..parallel.dist import rank, world_size
+from ..parallel.dist import data_rank, data_world
 from .image import reflect_pad_2d
 
 _C1 = 0.01**2
@@ -76,7 +76,7 @@ def min_reprojection(reproj: torch.Tensor, ident: Optional[torch.Tensor],
             # a rank of a data-parallel mesh draws the global batch's noise
             # and keeps its rows, as the JAX step's noise over the global
             # batch is sharded with it
-            n, r = world_size(), rank()
+            n, r = data_world(), data_rank()
             noise = torch.randn((n * ident.shape[0],) + tuple(ident.shape[1:]),
                                 generator=generator, device=generator.device,
                                 dtype=ident.dtype)

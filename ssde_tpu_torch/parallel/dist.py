@@ -17,6 +17,15 @@ needed), and the step's collectives are explicit:
 * :func:`broadcast_`: rank 0's parameters and buffers to every rank
   (``mesh.replicate_``).
 
+On a (data, model) mesh (``mesh.make_mesh_2d``) rank r sits at
+(r // m, r % m), as JAX's ``np.array(devices[:d*m]).reshape(d, m)``
+places device r (``ssde_tpu/parallel/mesh.py:116-123``): a model group is
+m consecutive ranks, a data group the ranks of one model index. Each
+collective takes a ``group``, the world by default; :func:`data_group`
+and :func:`model_group` name a rank's two. A mesh with model = 1 has no
+groups of its own: its data group is the world, as before there was a
+model axis.
+
 Outside a process group every rank function reads world size 1 and rank 0.
 """
 
@@ -28,7 +37,7 @@ import os
 import shutil
 import tempfile
 from collections import defaultdict
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -37,8 +46,13 @@ import torch.distributed as dist
 # that died or hangs ends the run with an error after at most this long)
 DEFAULT_TIMEOUT_S = 1800.0
 
-# the mesh of the process group this process is a rank of (set by launch)
+# the mesh of the process group this process is a rank of, its (data,
+# model) shape and this rank's data and model groups (None: the world); set
+# by launch
 _MESH: Optional[List[torch.device]] = None
+_SHAPE: Optional[Tuple[int, int]] = None
+_DATA_GROUP = None
+_MODEL_GROUP = None
 # what the fork server that starts the ranks imports once, so that a rank
 # starts in a fraction of a second instead of importing torch and the
 # trainers anew. The server stays one thread and never touches a card (a
@@ -63,6 +77,65 @@ def rank() -> int:
 def current_mesh() -> Optional[List[torch.device]]:
     """The mesh that :func:`launch` started this rank on; None outside it."""
     return _MESH
+
+
+def mesh_shape() -> Tuple[int, int]:
+    """(data, model) of this rank's mesh: (world size, 1) in a group that
+    ``launch`` did not give a model axis; (1, 1) outside a process group."""
+    if not in_group():
+        return (1, 1)
+    return _SHAPE or (world_size(), 1)
+
+
+def data_world() -> int:
+    """The data axis' size: the ranks that split the batch."""
+    return mesh_shape()[0]
+
+
+def model_world() -> int:
+    """The model axis' size: the ranks that split every sharded layer's
+    output channels."""
+    return mesh_shape()[1]
+
+
+def data_rank() -> int:
+    """This rank's index on the data axis, r // m: its rows of the batch."""
+    return rank() // model_world()
+
+
+def model_rank() -> int:
+    """This rank's index on the model axis, r % m: its slice of the channels."""
+    return rank() % model_world()
+
+
+def data_group():
+    """The process group of this rank's data axis (None: the world)."""
+    return _DATA_GROUP
+
+
+def model_group():
+    """The process group of this rank's model axis (None: the world)."""
+    return _MODEL_GROUP
+
+
+def _make_groups(shape: Tuple[int, int]) -> None:
+    """Every group of the (data, model) mesh ``shape``, made on every rank in
+    one order (``dist.new_group`` is collective); this rank keeps its own
+    two. A model = 1 mesh makes none: its data group is the world."""
+    global _SHAPE, _DATA_GROUP, _MODEL_GROUP
+    d, m = shape
+    _SHAPE = (d, m)
+    if m == 1:
+        return
+    r = dist.get_rank()
+    for i in range(d):  # model groups: m consecutive ranks
+        group = dist.new_group(list(range(i * m, (i + 1) * m)))
+        if r // m == i:
+            _MODEL_GROUP = group
+    for j in range(m):  # data groups: the ranks of model index j
+        group = dist.new_group(list(range(j, d * m, m)))
+        if r % m == j:
+            _DATA_GROUP = group
 
 
 def backend() -> Optional[str]:
@@ -93,48 +166,53 @@ def _coalesced_(tensors: Sequence[torch.Tensor], collective: Callable) -> None:
             offset += t.numel()
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Replace each tensor by its mean over the ranks: summed in one flat
-    buffer per dtype, then divided by the world size. Every rank ends with
-    the same values. Outside a group nothing happens."""
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Replace each tensor by its mean over the ranks of ``group`` (default
+    the world): summed in one flat buffer per dtype, then divided by the
+    group's size. Every rank ends with the same values. Outside a group
+    nothing happens."""
     if not in_group() or not tensors:
         return
-    n = world_size()
+    n = dist.get_world_size(group)
 
     def mean_(flat):
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         flat.div_(n)
 
     _coalesced_(tensors, mean_)
 
 
-def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
-    """Give every rank rank ``src``'s values of ``tensors``, in place."""
+def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0, group=None) -> None:
+    """Give every rank of ``group`` (default the world) the values of
+    ``tensors`` on global rank ``src``, in place."""
     if not in_group() or not tensors:
         return
-    _coalesced_(tensors, lambda flat: dist.broadcast(flat, src))
+    _coalesced_(tensors, lambda flat: dist.broadcast(flat, src, group=group))
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """The sum over the ranks; its backward sums the output gradients over
-    the ranks, so that each rank's input gradient counts every rank's loss."""
+    """The sum over the ranks of a group; its backward sums the output
+    gradients over the same ranks, so that each rank's input gradient counts
+    every rank's loss."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks, differentiable (a new tensor)."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (default the world),
+    differentiable (a new tensor)."""
+    return _AllReduceSum.apply(x, group)
 
 
 class _CallerStdio:
@@ -155,12 +233,13 @@ def _attach_stdio(out, err) -> None:
         os.close(inherited)
 
 
-def _rank_main(rank_: int, fn, mesh, backend_: str, folder: str, timeout_s: float,
+def _rank_main(rank_: int, fn, mesh, shape, backend_: str, folder: str, timeout_s: float,
                threads: int, args, _stdio=None) -> None:
-    """One rank of :func:`launch`: its device, the group, ``fn``, its result
-    to ``folder``, the group destroyed (``_stdio`` attached the caller's
-    standard output and error as it was unpickled)."""
-    global _MESH
+    """One rank of :func:`launch`: its device, the group and the mesh's
+    groups of ``shape``, ``fn``, its result to ``folder``, the groups
+    destroyed (``_stdio`` attached the caller's standard output and error as
+    it was unpickled)."""
+    global _MESH, _SHAPE, _DATA_GROUP, _MODEL_GROUP
     device = mesh[rank_]
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -171,11 +250,12 @@ def _rank_main(rank_: int, fn, mesh, backend_: str, folder: str, timeout_s: floa
                             timeout=datetime.timedelta(seconds=timeout_s),
                             device_id=device if backend_ == "nccl" else None)
     _MESH = list(mesh)
+    _make_groups(shape)
     out = fn(*args)  # an exception ends this process; the parent ends the others
     torch.save(out, os.path.join(folder, f"rank{rank_}.pt"))
     dist.barrier()
     dist.destroy_process_group()
-    _MESH = None
+    _MESH, _SHAPE, _DATA_GROUP, _MODEL_GROUP = None, None, None, None
 
 
 def launch(fn: Callable, mesh: Sequence[torch.device], *args, backend: Optional[str] = None,
@@ -183,6 +263,9 @@ def launch(fn: Callable, mesh: Sequence[torch.device], *args, backend: Optional[
     """Run ``fn(*args)`` once on every device of ``mesh``, one process a
     device, inside a process group; return each rank's result
     (``fn``'s return value, saved with ``torch.save``), in rank order.
+    A mesh with a ``shape`` (``mesh.make_mesh_2d``) is a (data, model)
+    mesh, and each rank gets its data and model groups; any other is the
+    data axis alone.
 
     The backend is NCCL on cards and gloo on the CPU unless ``backend``
     names one (gloo also takes CUDA tensors: two ranks may share a card
@@ -194,9 +277,12 @@ def launch(fn: Callable, mesh: Sequence[torch.device], *args, backend: Optional[
     on one that died or hangs raises after ``timeout_s``. The port's kernel
     library is built here, before the ranks start, when the mesh has a card.
     """
+    shape = tuple(getattr(mesh, "shape", (len(mesh), 1)))
     mesh = [torch.device(d) for d in mesh]
     if not mesh:
         raise ValueError("launch: the mesh is empty")
+    if shape[0] * shape[1] != len(mesh):
+        raise ValueError(f"launch: a {shape} mesh of {len(mesh)} devices")
     backend = backend or default_backend(mesh)
     if mesh[0].type == "cuda":
         from ..ops.build import load_library
@@ -207,7 +293,7 @@ def launch(fn: Callable, mesh: Sequence[torch.device], *args, backend: Optional[
     multiprocessing.set_forkserver_preload(list(PRELOAD))
     try:
         torch.multiprocessing.start_processes(
-            _rank_main, args=(fn, mesh, backend, folder, timeout_s, threads, args,
+            _rank_main, args=(fn, mesh, shape, backend, folder, timeout_s, threads, args,
                               _CallerStdio()),
             nprocs=len(mesh), join=True, start_method="forkserver")
         return [torch.load(os.path.join(folder, f"rank{r}.pt"), weights_only=False)

@@ -14,7 +14,7 @@ from typing import Iterable, List
 
 import torch
 
-from ..parallel.dist import all_reduce_mean_, in_group
+from ..parallel.dist import all_reduce_mean_, data_group, in_group
 
 
 def lr_at(step: int, learning_rate: float, scheduler_step_size: int,
@@ -59,13 +59,17 @@ class TrainState:
     def apply_gradients(self) -> None:
         """The scheduled rate, one Adam step, the count. Inside a process
         group every gradient that is not None (the frozen ones dropped
-        first) is first replaced by its mean over the ranks: the JAX step's
-        gradient AllReduce over the mesh, for every trainer."""
+        first) is first replaced by its mean over the rank's data group (the
+        world where the mesh has no model axis): the JAX step's gradient
+        AllReduce over the mesh, for every trainer. (On a model axis a
+        sharded layer's slice is the same slice on every rank of the data
+        group, and a replicated parameter's gradient is the same on every
+        rank of the model group.)"""
         for p in self.frozen:
             p.grad = None
         if in_group():
             all_reduce_mean_([p.grad for group in self.optimizer.param_groups
-                              for p in group["params"] if p.grad is not None])
+                              for p in group["params"] if p.grad is not None], data_group())
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr
         self.optimizer.step()

@@ -335,7 +335,7 @@ class TrainerBase:
         opt = self.opt
         self.train_loader = Loader(self.train_dataset, opt.batch_size, shuffle=True,
                                    drop_last=True, num_workers=opt.num_workers,
-                                   shard=(self.rank, self.world))
+                                   shard=(parallel.data_rank(), parallel.data_world()))
         self.val_loader = Loader(self.val_dataset, opt.batch_size, shuffle=False,
                                  drop_last=True, num_workers=opt.num_workers)
         self._val_iter = None

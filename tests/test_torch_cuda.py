@@ -248,6 +248,41 @@ def test_backward_kernels_match_autograd(dev, B, cin, cout, h, w, pad, act, dtyp
         assert rel <= TOL[dtype], (act, rel)
 
 
+# The model axis (parallel.model_sharded_params at m = 2): a rank of v10's
+# GRU step runs #1 (forward and dx) and #2 on its slice of each kernel conv's
+# output channels at scales 0 and 1: the cells' x conv (its gates' and
+# candidate's slices, 32 -> 48 and 64 -> 96), h conv (32 -> 32, 64 -> 64) and
+# reset*h conv (32 -> 16, 64 -> 32), and the conv units (32 -> 16, 64 -> 32).
+# Each against its plain version at the bounds above, and the slice's
+# forward against the same channels of the whole conv.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,act", [(32, 48, "none"), (32, 32, "none"), (32, 16, "none"),
+                                          (32, 16, "relu"), (64, 96, "none"), (64, 64, "none"),
+                                          (64, 32, "none"), (64, 32, "relu")])
+def test_kernels_on_a_model_axis_slice(dev, cin, cout, act, dtype):
+    B, h, w = 2, 12, 80
+    x, wt, b = _inputs(dev, B, cin, 2 * cout, h, w, seed=7)
+    rows = slice(cout, 2 * cout)  # rank 1's rows of the whole weight
+    xi = x.to(dtype).requires_grad_()
+    wi, bi = (t[rows].contiguous().to(dtype).requires_grad_() for t in (wt, b))
+    g = torch.randn(B, cout, h, w, device=dev)
+    out = conv3x3(xi, wi, bi, "zero", act)
+    out.backward(g.to(dtype))
+    with torch.no_grad():
+        whole = conv3x3(xi.detach(), wt.to(dtype), b.to(dtype), "zero", act)[:, rows]
+    torch.cuda.synchronize()
+    xr, wr, br = (t.detach().float().requires_grad_() for t in (xi, wi, bi))
+    want = conv3x3_reference(xr, wr, br, "zero", act)
+    ag = act_grad(act, out.detach().float())
+    gp = (g.to(dtype).float() * (1.0 if ag is None else ag)).to(dtype).float()
+    conv3x3_reference(xr, wr, br, "zero").backward(gp)
+    for got, ref in ((out, want), (whole, want), (xi.grad, xr.grad), (wi.grad, wr.grad),
+                     (bi.grad, br.grad)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        rel = ((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-12)).item()
+        assert rel <= TOL[dtype], rel
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_weight_gradient_is_deterministic(dev, dtype):
     x, _, _ = _inputs(dev, 8, 32, 96, 96, 320, seed=4)
